@@ -1,0 +1,120 @@
+"""grid_map iterator semantics as static orderings (host numpy) and a batched
+Bresenham walk (torch).
+
+- circle -> a static list of integer cell offsets;
+- spiral -> a static *ordered* list of offsets reproducing grid_map's exact
+  ring-walk visit order (the footprint logic is order-dependent within the
+  last ring);
+- line   -> Bresenham in closed form over a whole batch of endpoint pairs.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=None)
+def circle_offsets(radius: float, resolution: float) -> np.ndarray:
+    """Integer index offsets of cells whose center lies within `radius` of the
+    center cell's center. (K, 2) int32, includes (0, 0) when radius >= 0.
+
+    grid_map's CircleIterator includes a cell iff
+    ``(cell_position - center).squaredNorm() <= radius^2``, evaluated here in
+    float64 at cell-center distances.
+    """
+    n = int(math.floor(radius / resolution + 1e-9)) + 1
+    offs = []
+    r2 = float(radius) * float(radius)
+    for di in range(-n, n + 1):
+        for dj in range(-n, n + 1):
+            d2 = (di * resolution) ** 2 + (dj * resolution) ** 2
+            if d2 <= r2 + 1e-12:
+                offs.append((di, dj))
+    if not offs:
+        offs.append((0, 0))
+    return np.asarray(offs, dtype=np.int32)
+
+
+def _signum(x: int) -> int:
+    return (x > 0) - (x < 0)
+
+
+@functools.lru_cache(maxsize=None)
+def spiral_order(radius: float, resolution: float) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact grid_map SpiralIterator visit order as static offsets.
+
+    Returns ``(offsets (K,2) int32, ring (K,) int32)``: the center first, then
+    rings d = 1 .. nRings, each walked as grid_map's ``generateRing`` walks it
+    (start at (+d, 0), step along the ring keeping the integer-rounded norm
+    equal to d). The two outermost rings are emitted in full and tagged by
+    `ring`; the Euclidean re-check against the query center is the caller's.
+    """
+    n_rings = int(math.ceil(radius / resolution - 1e-12))
+    offsets = [(0, 0)]
+    rings = [0]
+    for d in range(1, n_rings + 1):
+        px, py = d, 0
+        while True:
+            offsets.append((px, py))
+            rings.append(d)
+            nx, ny = -_signum(py), _signum(px)
+            if nx != 0 and int(math.sqrt((px + nx) ** 2 + py**2)) == d:
+                px += nx
+            elif ny != 0 and int(math.sqrt(px**2 + (py + ny) ** 2)) == d:
+                py += ny
+            else:
+                px += nx
+                py += ny
+            if px == d and py == 0:
+                break
+    return np.asarray(offsets, dtype=np.int32), np.asarray(rings, dtype=np.int32)
+
+
+def line_cells_batch(start_idx: torch.Tensor, end_idx: torch.Tensor, max_cells: int):
+    """Bresenham for batches of index pairs, static length `max_cells`.
+
+    start_idx, end_idx: (..., 2) int32 cell indices. Returns
+    ``(cells (..., max_cells, 2) int32, valid (..., max_cells) bool,
+    n_real (...,))``: cells past the line's ``max(|d|) + 1`` real cells repeat
+    the end cell. grid_map LineIterator parity: integer Bresenham with the
+    numerator initialised to ``denom // 2``.
+    """
+    start_idx = start_idx.to(torch.int32)
+    end_idx = end_idx.to(torch.int32)
+    delta = (end_idx - start_idx).abs()
+    sign = torch.where(end_idx >= start_idx, 1, -1).to(torch.int32)
+    x_dom = delta[..., 0] >= delta[..., 1]
+    denom = torch.where(x_dom, delta[..., 0], delta[..., 1])
+    num_add = torch.where(x_dom, delta[..., 1], delta[..., 0])
+    zero = torch.zeros_like(sign[..., 0])
+    inc_main = torch.stack(
+        [torch.where(x_dom, sign[..., 0], zero), torch.where(x_dom, zero, sign[..., 1])],
+        dim=-1,
+    )
+    inc_over = torch.stack(
+        [torch.where(x_dom, zero, sign[..., 0]), torch.where(x_dom, sign[..., 1], zero)],
+        dim=-1,
+    )
+    k = torch.arange(max_cells, dtype=torch.int32, device=start_idx.device)
+    k = k.reshape((1,) * denom.dim() + (max_cells,))
+    denom_e = denom[..., None]
+    num_add_e = num_add[..., None]
+    safe_denom = torch.clamp_min(denom_e, 1)
+    num0 = denom_e // 2
+    over_before = (num0 + k * num_add_e) // safe_denom  # overflows before step k
+    over_before = torch.where(k == 0, 0, over_before).to(torch.int32)
+    cells = (
+        start_idx[..., None, :]
+        + inc_main[..., None, :] * k[..., None]
+        + inc_over[..., None, :] * over_before[..., None]
+    )
+    valid = k < (denom_e + 1)
+    n_real = denom_e[..., 0] + 1
+    end_b = end_idx[..., None, :].expand_as(cells)
+    cells = torch.where(valid[..., None], cells, end_b)
+    return cells, valid, n_real

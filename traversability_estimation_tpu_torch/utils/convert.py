@@ -1,0 +1,84 @@
+"""State carried into the port from plain values.
+
+The engine has no weights; what moves between the JAX package and the port
+is configuration and map state. Both arrive as plain fields (dicts, numpy
+arrays), so this module needs nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from traversability_estimation_tpu_torch.device import DeviceLike, resolve_device
+from traversability_estimation_tpu_torch.ops.filters import ChainConfig
+from traversability_estimation_tpu_torch.ops.footprint import QueryState
+from traversability_estimation_tpu_torch.utils.config import EstimatorConfig, FootprintConfig
+
+
+def _as_fields(obj_or_dict: Any) -> Mapping[str, Any]:
+    if dataclasses.is_dataclass(obj_or_dict) and not isinstance(obj_or_dict, type):
+        return dataclasses.asdict(obj_or_dict)
+    return obj_or_dict
+
+
+def _tuples(x):
+    """Lists (as ``dataclasses.asdict`` or a serialiser leaves them) back to
+    the hashable tuples the frozen configs hold."""
+    if isinstance(x, (list, tuple)):
+        return tuple(_tuples(v) for v in x)
+    return x
+
+
+def _build(cls, fields: Mapping[str, Any]):
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: _tuples(v) for k, v in fields.items() if k in names})
+
+
+def config_from_fields(obj_or_dict: Any) -> EstimatorConfig:
+    """The port's EstimatorConfig from an estimator config's fields: a
+    dataclass instance with the same field names (the JAX package's
+    ``EstimatorConfig``) or its ``dataclasses.asdict``.
+
+    A configured generic chain (``use_generic_chain`` with filter specs)
+    raises NotImplementedError; filter specs alone are ignored, as the JAX
+    estimator ignores them without ``use_generic_chain``."""
+    fields = dict(_as_fields(obj_or_dict))
+    if fields.get("use_generic_chain") and not fields.get("filter_specs"):
+        fields["use_generic_chain"] = False
+    chain = fields.get("chain")
+    if chain is not None and not isinstance(chain, ChainConfig):
+        fields["chain"] = _build(ChainConfig, _as_fields(chain))
+    footprint = fields.get("footprint")
+    if footprint is not None and not isinstance(footprint, FootprintConfig):
+        fields["footprint"] = _build(FootprintConfig, _as_fields(footprint))
+    return _build(EstimatorConfig, fields)
+
+
+def query_state_from_numpy(
+    traversability: np.ndarray,
+    traversable_mask: np.ndarray,
+    position,
+    resolution: float,
+    default: float = 0.5,
+    device: DeviceLike = None,
+) -> QueryState:
+    """The port's QueryState from host arrays (float32 traversability with NaN
+    unknown, bool mask, (2,) map position)."""
+    dev = resolve_device(device)
+    return QueryState(
+        traversability=torch.as_tensor(
+            np.array(traversability, dtype=np.float32), dtype=torch.float32, device=dev
+        ),
+        traversable_mask=torch.as_tensor(
+            np.array(traversable_mask, dtype=bool), dtype=torch.bool, device=dev
+        ),
+        position=torch.as_tensor(
+            np.array(position, dtype=np.float32).reshape(2), dtype=torch.float32, device=dev
+        ),
+        resolution=float(resolution),
+        default_traversability=float(default),
+    )
