@@ -3,23 +3,29 @@
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs one
 CUDA device and the CUDA toolkit (``nvcc``); without a device it exits 1
-before printing any result.
+before printing any result. ``python3 chip_smoke.py --variants`` instead
+times the kernel variants of ``kernels/build.py::VARIANTS`` against the
+production kernels at config 3 (each held bit-identical to the plain
+version) and exits.
 
 Phases (any failure exits non-zero):
 1. the card's name and power limit; build both kernels from ``csrc/``;
+   each kernel's ptxas report, launch geometry and resident blocks per SM;
 2. kernel 1 (fused map update) against its plain torch version on the card:
-   the 336^2 terrain and a 100x133 map with 4% NaN holes, with the
-   roughness veto off and on. Bar: step layer and every veto plane equal,
-   the other float layers within 1e-6 with equal finite patterns;
+   the 336^2 terrain and the edge shapes 1x1, 5x400, 337x335 and 100x133
+   with 4% NaN holes, with the roughness veto off and on. Bar: every layer
+   bit-identical (NaN equal to NaN);
 3. kernel 2 (dense circle field) against its plain version on the card:
-   radius pairs (0.45, 0.3) and (0.45, 0.0) and one call with an in-map
-   plane. Bar: ok and trav bit-identical;
+   radius pairs (0.45, 0.3) and (0.45, 0.0), with and without an in-map
+   plane, on the 336^2 map and the edge shapes. Bar: ok and trav
+   bit-identical;
 4. the main path (config 3): estimator on cuda, update of the 336^2 map at
    0.03 m, 1024 circular paths x 50 poses at radius 0.3, and a few
    FootprintPaths; both kernels must have launched; path verdicts equal to
    the same run on the CPU, traversability within 1e-6 of it. CUDA-event
    times of each stage and of each plain version;
 5. a 2048^2 map (> 4M cells: the query-crop path) with one path batch;
+   both kernels bit-identical to their plain versions there, and timed;
 6. a ``kernels`` JSON line, the card line, and the contract line
    ``{"ok": true, "device": {...}}`` last.
 """
@@ -117,10 +123,30 @@ def main() -> None:
     seconds = build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items()) or 'cached'})")
+    res = 0.03
+    H = W = 336
+    cfg = EstimatorConfig(resolution=res)
+    k1_plan = update_kernel.launch_plan(update_kernel.kernel_params(cfg.chain, cfg.veto), H, W)
+    k1_occ = update_kernel.occupancy(k1_plan)
+    k2_plan = field_kernel.device_tables(0.3 + cfg.footprint.circular_footprint_offset, res, H, W,
+                                         dev)[0]
+    k2_occ = field_kernel.occupancy(k2_plan)
+    geometry = {
+        "fused_update": f"layers kernel grid {k1_plan.grid_layers} x block "
+                        f"{k1_plan.block_layers}, smem {k1_plan.smem_layers} B dynamic, "
+                        f"{k1_occ[0]} resident blocks/SM; veto kernel grid {k1_plan.grid_veto} x "
+                        f"block {k1_plan.block_veto}, smem {k1_plan.smem_veto} B dynamic, "
+                        f"{k1_occ[1]} resident blocks/SM",
+        "circle_field": f"grid {k2_plan.grid} x block {k2_plan.block}, smem "
+                        f"{k2_plan.smem_bytes} B dynamic, resident blocks/SM {k2_occ}",
+    }
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+        log(f"launch {name} at {H}x{W}: {geometry[name]}")
+    if min(*k1_occ, k2_occ) < 1:
+        fail(f"a kernel cannot be resident on an SM: {k1_occ}, {k2_occ}")
 
     def cuda_ms(fn, reps, warmup=2):
         for _ in range(warmup):
@@ -168,64 +194,83 @@ def main() -> None:
             return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
         return bool(torch.equal(a, b))
 
-    res = 0.03
-    H = W = 336
-    terrain = synthetic_terrain(H, W, res, seed=1)
-    holes = synthetic_terrain(100, 133, res, seed=5, nan_frac=0.04)
+    def check_update(got, ref, label):
+        """Kernel 1's layers against the plain version's: every layer
+        bit-identical. Returns the largest float difference (0)."""
+        torch.cuda.synchronize()
+        if set(got) != set(ref):
+            fail(f"kernel 1 layer set {sorted(got)} != plain {sorted(ref)}")
+        err = 0.0
+        for k in ref:
+            if got[k].dtype != ref[k].dtype or not same(got[k], ref[k]):
+                fail(f"kernel 1 {label}: {k} differs from the plain version")
+            if ref[k].is_floating_point() and ref[k].numel():
+                fin = torch.isfinite(ref[k])
+                if bool(fin.any()):
+                    err = max(err, float((got[k][fin] - ref[k][fin]).abs().max()))
+        return err
 
-    # ---- 2. kernel 1 vs plain --------------------------------------------
-    exact_layers = ("traversability_step", "slope_ok", "step_ok", "roughness_ok",
-                    "traversable_mask", "slope_footprint", "step_footprint",
-                    "roughness_footprint")
-    k1_err = 0.0
-    for label, elev_np in (("336x336", terrain), ("100x133 4% NaN", holes)):
-        elev = torch.as_tensor(elev_np, device=dev)
-        for check_roughness in (False, True):
-            cfg = EstimatorConfig(
-                resolution=res,
-                footprint=FootprintConfig(verify_roughness_footprint=check_roughness),
-            )
-            got = update_kernel.fused_update(elev, cfg.chain, cfg.veto)
-            ref = update_kernel.fused_update_plain(elev, cfg.chain, cfg.veto)
-            torch.cuda.synchronize()
-            if set(got) != set(ref):
-                fail(f"kernel 1 layer set {sorted(got)} != plain {sorted(ref)}")
-            for k in ref:
-                a, b = got[k], ref[k]
-                if k in exact_layers:
-                    if not same(a, b):
-                        fail(f"kernel 1 {label} roughness={check_roughness}: {k} differs")
-                    continue
-                if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
-                    fail(f"kernel 1 {label}: {k} finite pattern differs")
-                fin = torch.isfinite(b)
-                err = float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
-                k1_err = max(k1_err, err)
-                if err > 1e-6:
-                    fail(f"kernel 1 {label}: {k} max abs err {err:g} > 1e-6")
-            log(f"kernel 1 parity {label} check_roughness={check_roughness}: ok "
-                f"(float layers max abs err {k1_err:g})")
+    def query_state(elev_np):
+        layers = update_kernel.fused_update_plain(
+            torch.as_tensor(elev_np, device=dev), cfg.chain, cfg.veto)
+        return footprint.QueryState(
+            traversability=layers["traversability"],
+            traversable_mask=layers["traversable_mask"],
+            position=torch.zeros(2, dtype=torch.float32, device=dev), resolution=res,
+            default_traversability=0.5,
+        )
 
-    # ---- 3. kernel 2 vs plain --------------------------------------------
-    cfg = EstimatorConfig(resolution=res)
-    base = update_kernel.fused_update(torch.as_tensor(terrain, device=dev), cfg.chain, cfg.veto)
-    state = footprint.QueryState(
-        traversability=base["traversability"], traversable_mask=base["traversable_mask"],
-        position=torch.zeros(2, dtype=torch.float32, device=dev), resolution=res,
-        default_traversability=0.5,
-    )
-    in_map = torch.as_tensor(np.random.default_rng(2).random((H, W)) > 0.05, device=dev)
-    k2_err = 0.0
-    for rmax, rmin, im in ((0.45, 0.3, None), (0.45, 0.0, None), (0.45, 0.3, in_map)):
+    def check_field(state, rmax, rmin, im, label):
+        """Kernel 2 against the plain field: ok and trav bit-identical.
+        Returns the largest trav difference (0)."""
         ok_k, tv_k = field_kernel.dense_circle_field(state, rmax, rmin, im)
         ok_p, tv_p = footprint.dense_circle_field(state, rmax, rmin, im)
         torch.cuda.synchronize()
         if not (torch.equal(ok_k, ok_p) and same(tv_k, tv_p)):
-            diff = (tv_k - tv_p).abs().max().item()
-            fail(f"kernel 2 ({rmax}, {rmin}, in_map={im is not None}) differs "
+            diff = (tv_k - tv_p).abs().max().item() if tv_p.numel() else 0.0
+            fail(f"kernel 2 {label} ({rmax}, {rmin}, in_map={im is not None}) differs "
                  f"(ok equal {torch.equal(ok_k, ok_p)}, trav max diff {diff:g})")
-        k2_err = max(k2_err, float((tv_k - tv_p).abs().max()))
-        log(f"kernel 2 parity radius ({rmax}, {rmin}) in_map={im is not None}: bit-identical")
+        return float((tv_k - tv_p).abs().max()) if tv_p.numel() else 0.0
+
+    terrain = synthetic_terrain(H, W, res, seed=1)
+    shapes = {
+        "336x336": terrain,
+        "1x1": synthetic_terrain(1, 1, res, seed=6),
+        "5x400": synthetic_terrain(5, 400, res, seed=7, nan_frac=0.02),
+        "337x335": synthetic_terrain(337, 335, res, seed=8),
+        "100x133 4% NaN": synthetic_terrain(100, 133, res, seed=5, nan_frac=0.04),
+    }
+
+    if "--variants" in sys.argv[1:]:
+        time_variants(build, update_kernel, field_kernel, footprint, cfg, terrain, dev,
+                      device_ms, check_update, query_state, same, card_line)
+        return
+
+    # ---- 2. kernel 1 vs plain --------------------------------------------
+    k1_err = 0.0
+    for label, elev_np in shapes.items():
+        elev = torch.as_tensor(elev_np, device=dev)
+        for check_roughness in (False, True):
+            rcfg = EstimatorConfig(
+                resolution=res,
+                footprint=FootprintConfig(verify_roughness_footprint=check_roughness),
+            )
+            got = update_kernel.fused_update(elev, rcfg.chain, rcfg.veto)
+            ref = update_kernel.fused_update_plain(elev, rcfg.chain, rcfg.veto)
+            k1_err = max(k1_err, check_update(got, ref, f"{label} roughness={check_roughness}"))
+        log(f"kernel 1 parity {label}, roughness veto off and on: bit-identical")
+
+    # ---- 3. kernel 2 vs plain --------------------------------------------
+    k2_err = 0.0
+    for label, elev_np in shapes.items():
+        state = query_state(elev_np)
+        h, w = state.shape
+        in_map = torch.as_tensor(np.random.default_rng(2).random((h, w)) > 0.05, device=dev)
+        for rmax, rmin in ((0.45, 0.3), (0.45, 0.0)):
+            for im in (None, in_map):
+                k2_err = max(k2_err, check_field(state, rmax, rmin, im, label))
+        log(f"kernel 2 parity {label}, radii (0.45, 0.3) and (0.45, 0.0), in_map absent and "
+            "present: bit-identical")
 
     # ---- 4. main path, config 3 ------------------------------------------
     P, N, radius = 1024, 50, 0.3
@@ -279,7 +324,7 @@ def main() -> None:
     elev_dev = torch.as_tensor(terrain, device=dev)
     offset = est.config.footprint.circular_footprint_offset
     qs = est.query_state
-    k1_ms = device_ms(lambda: update_kernel.launch_kernel(elev_dev, cfg.chain, cfg.veto), 100)
+    k1_ms = device_ms(lambda: update_kernel.fused_update(elev_dev, cfg.chain, cfg.veto), 100)
     update_ms = cuda_ms(lambda: est.update(), 50)
     k1_plain_ms = cuda_ms(
         lambda: update_kernel.fused_update_plain(elev_dev, cfg.chain, cfg.veto), 5)
@@ -355,19 +400,26 @@ def main() -> None:
     ref_big = update_kernel.fused_update_plain(big_elev, cfg.chain, cfg.veto)
     if not torch.equal(ref_big["traversable_mask"], est_big.query_state.traversable_mask):
         fail("large-map traversable_mask differs from the plain version")
-    big_k1_ms = device_ms(lambda: update_kernel.launch_kernel(big_elev, cfg.chain, cfg.veto), 20)
+    check_update(update_kernel.fused_update(big_elev, cfg.chain, cfg.veto), ref_big, "2048x2048")
+    del ref_big
+    big_qs = est_big.query_state
+    check_field(big_qs, radius + offset, radius, None, "2048x2048")
+    big_k1_ms = device_ms(lambda: update_kernel.fused_update(big_elev, cfg.chain, cfg.veto), 20)
+    big_k2_ms = device_ms(
+        lambda: field_kernel.dense_circle_field(big_qs, radius + offset, radius), 20)
     big_batch_ms = cuda_ms(
         lambda: est_big.check_circular_paths_batch(big_poses, n_poses, radius), 20)
-    log(f"large map {HL}x{HL}: launches {big_launches}, first update + batch {big_wall:.1f} ms "
-        f"wall, kernel 1 {big_k1_ms:.4f} ms, path batch (crop, field cached) "
-        f"{big_batch_ms:.4f} ms, {int(safe_b.sum())} of {P} safe")
+    log(f"large map {HL}x{HL} ({card_line}): launches {big_launches}, both kernels "
+        f"bit-identical to their plain versions; first update + batch {big_wall:.1f} ms wall, "
+        f"kernel 1 {big_k1_ms:.4f} ms, kernel 2 (whole map) {big_k2_ms:.4f} ms, path batch "
+        f"(crop, field cached) {big_batch_ms:.4f} ms, {int(safe_b.sum())} of {P} safe")
 
     # ---- 6. report --------------------------------------------------------
     def bound(nbytes, ops):
         t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
-    b1, by1 = bound(update_kernel.kernel_bytes(H, W),
+    b1, by1 = bound(update_kernel.kernel_bytes(cfg.chain, cfg.veto, H, W),
                     update_kernel.kernel_operations(cfg.chain, cfg.veto, H, W))
     b2, by2 = bound(field_kernel.kernel_bytes(H, W), field_kernel.kernel_operations(n_off, H, W))
     kernels = [
@@ -387,6 +439,123 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def time_variants(build, update_kernel, field_kernel, footprint, cfg, terrain, dev,
+                  device_ms, check_update, query_state, same, card_line):
+    """Each build of ``build.VARIANTS`` against the production kernel at
+    config 3 (kernel 1 also at 2048^2): bit-identical to the plain version,
+    then device time per call, timed twice in alternating order."""
+    import ctypes
+
+    import torch
+
+    names = list(build.VARIANTS)
+    t0 = time.perf_counter()
+    build.build(names)
+    log(f"variant build: {time.perf_counter() - t0:.1f} s wall")
+    for name in names:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+    res = cfg.chain.resolution
+    H, W = terrain.shape
+    rmax = 0.3 + cfg.footprint.circular_footprint_offset
+    rmin = 0.3
+
+    # kernel 2 at config 3
+    state = query_state(terrain)
+    ok_p, tv_p = footprint.dense_circle_field(state, rmax, rmin)
+    plan0, deltas, radii = field_kernel.device_tables(rmax, res, H, W, dev)
+    runs = {}
+    k2_libs = {"circle_field": field_kernel._library()}
+    k2_libs.update({n: field_kernel.bind(build.load(n)) for n in names
+                    if n.startswith("circle_field")})
+    for name, lib in k2_libs.items():
+        g = field_kernel.geometry(lib)
+        plan = field_kernel.launch_plan(H, W, plan0.reach, plan0.n_offsets, g[1], g[2])
+
+        def fn(lib=lib, plan=plan):
+            return field_kernel.launch(lib, plan, deltas, radii, state, rmax, rmin)
+
+        ok_k, tv_k = fn()
+        torch.cuda.synchronize()
+        if not (torch.equal(ok_k, ok_p) and same(tv_k, tv_p)):
+            fail(f"variant {name} differs from the plain field")
+        occ = lib.te_circle_field_occupancy(plan.stride, plan.smem_bytes)
+        runs[name] = (fn, f"grid {plan.grid} block {plan.block} smem {plan.smem_bytes} B, "
+                          f"{occ} blocks/SM ({occ * plan.block[0] * plan.block[1] // 32} warps)")
+
+    # kernel 1 at config 3 and at 2048^2
+    def single_launch(lib, elev):
+        Hh, Ww = elev.shape
+        f32 = lambda: torch.empty((Hh, Ww), dtype=torch.float32, device=dev)  # noqa: E731
+        u8 = lambda: torch.empty((Hh, Ww), dtype=torch.bool, device=dev)  # noqa: E731
+        out = {"traversability": f32(), "traversability_slope": f32(),
+               "traversability_step": f32(), "traversability_roughness": f32(),
+               "slope_ok": u8(), "step_ok": u8(), "traversable_mask": u8(),
+               "slope_footprint": f32(), "step_footprint": f32()}
+        rc = lib.te_single_launch(
+            elev.data_ptr(), Hh, Ww, ctypes.byref(update_kernel.kernel_params(cfg.chain, cfg.veto)),
+            *(out[k].data_ptr() for k in ("traversability", "traversability_slope",
+                                          "traversability_step", "traversability_roughness",
+                                          "slope_ok", "step_ok")),
+            None, out["traversable_mask"].data_ptr(), out["slope_footprint"].data_ptr(),
+            out["step_footprint"].data_ptr(), None, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"one-launch variant: error {rc}")
+        return out
+
+    big = synthetic_terrain(2048, 2048, res, seed=1)
+    params = update_kernel.kernel_params(cfg.chain, cfg.veto)
+    for label, elev_np in (("", terrain), ("@2048", big)):
+        elev = torch.as_tensor(elev_np, device=dev)
+        ref = update_kernel.fused_update_plain(elev, cfg.chain, cfg.veto)
+        k1 = {"fused_update": (update_kernel._library(), update_kernel.TILE_H)}
+        for n in names:
+            if n.startswith("fused_update_one_launch"):
+                lib = build.load(n)
+                lib.te_single_launch.argtypes = [
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.POINTER(update_kernel.FusedParams), *([ctypes.c_void_p] * 12)]
+                lib.te_single_launch.restype = ctypes.c_int
+                lib.te_single_launch_occupancy.argtypes = [
+                    ctypes.POINTER(update_kernel.FusedParams)]
+                k1[n] = (lib, None)
+            elif n.startswith("fused_update"):
+                lib = update_kernel.bind(build.load(n))
+                k1[n] = (lib, update_kernel.geometry(lib)[1:3])
+        for name, (lib, tile_h) in k1.items():
+            if tile_h is None:
+                def fn(lib=lib, elev=elev):
+                    return single_launch(lib, elev)
+
+                tile = lib.te_single_launch_tile()
+                note = (f"one launch, {tile}x{tile} tiles, "
+                        f"{lib.te_single_launch_occupancy(ctypes.byref(params))} blocks/SM")
+            else:
+                def fn(lib=lib, elev=elev, tile_h=tile_h):
+                    return update_kernel.launch(lib, elev, cfg.chain, cfg.veto, tile_h)
+
+                plan = update_kernel.launch_plan(params, *elev.shape, tile_h)
+                occ = (lib.te_fused_update_occupancy(0, plan.smem_layers),
+                       lib.te_fused_update_occupancy(1, plan.smem_veto))
+                note = (f"two launches, grids {plan.grid_layers} / {plan.grid_veto}, blocks "
+                        f"{plan.block_layers} / {plan.block_veto}, blocks/SM {occ}")
+            check_update(fn(), ref, f"variant {name}{label}")
+            runs[name + label] = (fn, note)
+        del ref
+
+    order = list(runs)
+    times = {n: [] for n in order}
+    for rep in range(2):
+        for n in (order if rep == 0 else order[::-1]):
+            times[n].append(device_ms(runs[n][0], 20 if "@2048" in n else 100))
+    rows = []
+    for n in order:
+        log(f"variant {n}: {' / '.join(f'{t:.4f}' for t in times[n])} ms ({runs[n][1]})")
+        rows.append({"name": n, "ms": times[n], "note": runs[n][1]})
+    log(json.dumps({"variants": rows, "card": card_line}))
 
 
 if __name__ == "__main__":

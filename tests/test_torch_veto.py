@@ -84,7 +84,9 @@ def test_step_veto_ok_with_in_map_matches_v1(layers):
 @pytest.mark.parametrize("max_gap_width", [0.3, 0.2])
 def test_required_halo_and_kernel_reaches(max_gap_width):
     """The copied required_halo equals the JAX package's, and kernel 1's
-    window covers every stage's stencil within it."""
+    windows cover every stage's stencil within it: the layers kernel's
+    elevation window the step windows, the moments and the ray walk; the
+    veto kernel's window the count disc and the candidates + one step."""
     chain = ChainConfig(resolution=RES)
     vcfg = tv.VetoConfig(resolution=RES, max_gap_width=max_gap_width)
     jax_halo = jax_required_halo(
@@ -93,6 +95,10 @@ def test_required_halo_and_kernel_reaches(max_gap_width):
     assert tv.required_halo(chain, vcfg) == jax_halo
     p = update_kernel.kernel_params(chain, vcfg)
     walk = max(k for _, _, k in tv._ray_directions(vcfg))
-    assert (p.r_ray, p.r_mid, p.r_sh) == (2, 3, 4)
-    assert p.halo == max(5, 2 + walk) <= jax_halo
+    assert (p.r_ray, p.r_mid, p.r_sh) == (2, 3, 1)
+    assert p.halo == max(2, walk) <= jax_halo
     assert (p.n_mom_n, p.n_s1, p.n_s2, p.n_cnt, p.n_dirs, p.n_cand) == (9, 5, 5, 29, 8, 20)
+    cand = [(p.cand[3 * k], p.cand[3 * k + 1]) for k in range(p.n_cand)]
+    cnt = [(p.cnt[2 * k], p.cnt[2 * k + 1]) for k in range(p.n_cnt)]
+    assert max(max(abs(a), abs(b)) for a, b in cand) == p.r_ray
+    assert max(max(abs(a), abs(b)) for a, b in cnt) <= p.r_mid

@@ -6,122 +6,264 @@
 // which this kernel matches bit for bit (same float32 operations in the same
 // spiral order, built with -fmad=false).
 //
-// What bounds it on the H100: operations. Each cell walks K spiral offsets
-// (709 at radius 0.45 m / 0.03 m) with a handful of compares, selects and
-// two adds each, and reads and writes ~10 bytes; the work per byte is far
-// above the card's ridge point. The walk is sequential per cell (the first
-// failure's radius, count and sum depend on the order), so the design keeps
-// every operand on chip:
-//   - one block per 32x32 output tile; the tile's window with a halo of the
-//     spiral reach R is staged once in shared memory as ONE packed plane
-//     (-inf failing cell, NaN beyond the map or outside `in_map`, else the
-//     effective traversability), (32+2R)^2 floats, 15 KB at R = 15;
-//   - the offsets and radii sit in __constant__ memory: all threads read the
-//     same offset at the same step, so each read is a broadcast;
-//   - each thread owns 4 cells of one column and carries their six values
-//     (found, radius of first fail, count and sum before it, total count,
-//     total sum) in registers; neighbouring threads read neighbouring
-//     shared-memory words, so the window reads are free of bank conflicts.
-// Not done yet: filling 132 SMs when a 336^2 map has 121 tiles.
+// What bounds it on the H100: issued instructions. Each cell walks K spiral
+// offsets (697 at radius 0.45 m / 0.03 m) with one shared-memory load and a
+// handful of compares, selects and adds each, and reads and writes ~10
+// bytes. The walk is sequential per cell (the first failure's index, the
+// count and sum before it depend on the order), so the design keeps every
+// operand on chip and spends as few instructions per (cell, offset) as it
+// can:
+//   - small tiles (FIELD_TILE_W x FIELD_TILE_H output cells, one or a few
+//     cells per thread), so a 336^2 map gives 924 blocks of 4 warps and
+//     every SM holds many warps to hide the load latency;
+//   - the tile's window with a halo of the spiral reach R is staged once
+//     in shared memory as ONE packed plane (-inf failing cell, NaN beyond
+//     the map or outside `in_map`, else the effective traversability), in
+//     rows of a compile-time stride (64 or 128 floats);
+//   - the offsets arrive as one linear shared-memory delta each,
+//     (oi + R) * stride + (oj + R), built once on the host and cached on
+//     the device; the block copies them to shared memory in bytes, and each
+//     step of the walk is one broadcast table read (4 deltas per 16-byte
+//     load), one add and one load at `cell base + delta`; further cells of
+//     a thread sit a compile-time number of rows below, so their loads take
+//     an immediate offset;
+//   - the offset loop is unrolled by 8, so several loads are in flight;
+//   - six carries per cell stay in registers: found, the index of the
+//     first failure (its radius is read once at the end), the count and sum
+//     before it, the total count and sum, added in spiral order exactly as
+//     the plain version adds them. The first failure is met once per cell,
+//     so the walk only notes which group of 8 offsets holds it (with the
+//     count and sum before that group) and re-walks that group once at the
+//     end: the common step is an add, a load, a finite test, two
+//     predicated adds and an or.
+// The launch geometry (grid, block, shared memory) is computed on the host
+// by ops/field_kernel.py::launch_plan and checked here.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#define FIELD_TILE 32
-#define FIELD_ROWS_PER_THREAD 4
+#define FIELD_TILE_W 32
+#ifndef FIELD_TILE_H
+#define FIELD_TILE_H 4
+#endif
+#ifndef FIELD_CPT
+#define FIELD_CPT 1  // cells per thread, FIELD_TILE_H / FIELD_CPT rows apart
+#endif
+#ifndef FIELD_FIRST_FAIL
+#define FIELD_FIRST_FAIL 2  // 2: per group of offsets; 0, 1: per step (selects, vote)
+#endif
 #define FIELD_MAX_OFFS 4096
+#define FIELD_UNROLL 8
 
-__constant__ int2 c_offs[FIELD_MAX_OFFS];
-__constant__ float c_radii[FIELD_MAX_OFFS];
+constexpr int kRowsPerPass = FIELD_TILE_H / FIELD_CPT;
+constexpr int kThreads = FIELD_TILE_W * kRowsPerPass;
+static_assert(FIELD_TILE_H % FIELD_CPT == 0, "cells per thread must divide the tile height");
 
-__global__ void circle_field_kernel(const float* __restrict__ trav,
-                                    const uint8_t* __restrict__ mask,
-                                    const uint8_t* __restrict__ in_map,
-                                    int H, int W, int R, int n_off,
-                                    float default_tv, float rmin, float span_rcp,
-                                    int rmin_zero, uint8_t* __restrict__ ok_out,
-                                    float* __restrict__ trav_out) {
-  extern __shared__ float win[];
-  const int E = FIELD_TILE + 2 * R;
-  const int i0 = blockIdx.y * FIELD_TILE;
-  const int j0 = blockIdx.x * FIELD_TILE;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
+__device__ __forceinline__ int padded_offsets(int n_off) {
+  return (n_off + FIELD_UNROLL - 1) / FIELD_UNROLL * FIELD_UNROLL;
+}
 
-  for (int idx = tid; idx < E * E; idx += nthreads) {
-    const int gi = i0 - R + idx / E;
-    const int gj = j0 - R + idx % E;
-    float packed = NAN;
-    if (gi >= 0 && gi < H && gj >= 0 && gj < W) {
-      const long g = (long)gi * W + gj;
-      if (in_map == nullptr || in_map[g]) {
+template <int STRIDE>
+__global__ void __launch_bounds__(kThreads)
+circle_field_kernel(const float* __restrict__ trav, const uint8_t* __restrict__ mask,
+                    const uint8_t* __restrict__ in_map, int H, int W, int R,
+                    const int* __restrict__ deltas, const float* __restrict__ radii,
+                    int n_off, float default_tv, float rmin, float span_rcp, int rmin_zero,
+                    uint8_t* __restrict__ ok_out, float* __restrict__ trav_out) {
+  extern __shared__ int4 smem4[];
+  int* tab = reinterpret_cast<int*>(smem4);
+  float* win = reinterpret_cast<float*>(smem4) + padded_offsets(n_off);
+  const int i0 = blockIdx.y * FIELD_TILE_H;
+  const int j0 = blockIdx.x * FIELD_TILE_W;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+
+  // the deltas in bytes: each tap is then one add and one load
+  for (int k = ty * FIELD_TILE_W + tx; k < n_off; k += kThreads) tab[k] = deltas[k] * 4;
+  // the packed window; the loads of several rows are issued before their
+  // stores (unrolled), so the block waits for L2 a few times, not once per
+  // row
+  const int rows = FIELD_TILE_H + 2 * R, cols = FIELD_TILE_W + 2 * R;
+#pragma unroll 4
+  for (int r = ty; r < rows; r += kRowsPerPass) {
+    const int gi = i0 - R + r;
+#pragma unroll
+    for (int c = tx; c < STRIDE; c += FIELD_TILE_W) {
+      const int gj = j0 - R + c;
+      float packed = NAN;
+      if (c < cols && gi >= 0 && gi < H && gj >= 0 && gj < W) {
+        const long g = (long)gi * W + gj;
+        const bool inside = in_map == nullptr || in_map[g];
         const float t = trav[g];
         const float tv = isfinite(t) ? t : default_tv;
-        packed = mask[g] ? tv : -INFINITY;
+        const float v = mask[g] ? tv : -INFINITY;
+        packed = inside ? v : NAN;
       }
+      win[r * STRIDE + c] = packed;
     }
-    win[idx] = packed;
   }
   __syncthreads();
 
-  const int lj = threadIdx.x;
-  bool found[FIELD_ROWS_PER_THREAD];
-  float r_fail[FIELD_ROWS_PER_THREAD], cnt_b[FIELD_ROWS_PER_THREAD],
-      sum_b[FIELD_ROWS_PER_THREAD], cnt[FIELD_ROWS_PER_THREAD],
-      ssum[FIELD_ROWS_PER_THREAD];
+  const char* wb = reinterpret_cast<const char*>(win + ty * STRIDE + tx);
+  constexpr int kCellBytes = 4 * kRowsPerPass * STRIDE;
+  bool found[FIELD_CPT];
+  int k_fail[FIELD_CPT];
+  float cnt_b[FIELD_CPT], cnt[FIELD_CPT], sum_b[FIELD_CPT], ssum[FIELD_CPT];
 #pragma unroll
-  for (int r = 0; r < FIELD_ROWS_PER_THREAD; ++r) {
-    found[r] = false;
-    r_fail[r] = 0.0f;
-    cnt_b[r] = 0.0f;
-    sum_b[r] = 0.0f;
-    cnt[r] = 0.0f;
-    ssum[r] = 0.0f;
+  for (int c = 0; c < FIELD_CPT; ++c) {
+    found[c] = false;
+    k_fail[c] = 0;
+    cnt_b[c] = 0.0f;
+    cnt[c] = 0.0f;
+    sum_b[c] = 0.0f;
+    ssum[c] = 0.0f;
   }
 
-  for (int k = 0; k < n_off; ++k) {
-    const int2 o = c_offs[k];
-    const float r_k = c_radii[k];
+#if FIELD_FIRST_FAIL == 2
+  // Groups of FIELD_UNROLL offsets. A step only adds a passing value to the
+  // count and sum and ORs "some offset of this group fails"; at the end of
+  // the group a cell that meets its first failure there keeps the group's
+  // start index and the count and sum before the group. After the walk the
+  // cell re-walks that one group to the first failure, adding the same
+  // values in the same order, so the count and sum before the first failure
+  // carry the plain version's bits. The plain version adds 0 for a cell
+  // that does not pass; a sum that starts at +0 and adds finite values is
+  // never -0, so skipping that add gives the same bits.
+  int g_fail[FIELD_CPT];
+  auto group = [&](int k0, int kn, const int* d) {
+    float gs_cnt[FIELD_CPT], gs_sum[FIELD_CPT];
+    bool fails[FIELD_CPT];
 #pragma unroll
-    for (int r = 0; r < FIELD_ROWS_PER_THREAD; ++r) {
-      const int li = threadIdx.y + r * blockDim.y;
-      const float v = win[(li + R + o.x) * E + (lj + R + o.y)];
-      const bool fail_k = v == -INFINITY;
-      const bool is_pass = isfinite(v);
-      const bool new_fail = fail_k && !found[r];
-      r_fail[r] = new_fail ? r_k : r_fail[r];
-      cnt_b[r] = new_fail ? cnt[r] : cnt_b[r];
-      sum_b[r] = new_fail ? ssum[r] : sum_b[r];
-      found[r] = found[r] || fail_k;
-      cnt[r] = cnt[r] + (is_pass ? 1.0f : 0.0f);
-      ssum[r] = ssum[r] + (is_pass ? v : 0.0f);
+    for (int c = 0; c < FIELD_CPT; ++c) {
+      gs_cnt[c] = cnt[c];
+      gs_sum[c] = ssum[c];
+      fails[c] = false;
+    }
+#pragma unroll
+    for (int u = 0; u < FIELD_UNROLL; ++u) {
+      if (k0 + u < kn) {
+#pragma unroll
+        for (int c = 0; c < FIELD_CPT; ++c) {
+          const float v = *reinterpret_cast<const float*>(wb + d[u] + c * kCellBytes);
+          if (isfinite(v)) {
+            cnt[c] = cnt[c] + 1.0f;
+            ssum[c] = ssum[c] + v;
+          }
+          fails[c] = fails[c] || v == -INFINITY;
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < FIELD_CPT; ++c) {
+      if (fails[c] && !found[c]) {
+        found[c] = true;
+        g_fail[c] = k0;
+        cnt_b[c] = gs_cnt[c];
+        sum_b[c] = gs_sum[c];
+      }
+    }
+  };
+
+  const int n8 = n_off / FIELD_UNROLL * FIELD_UNROLL;
+  int k = 0;
+  for (; k < n8; k += FIELD_UNROLL) {
+    const int4 d0 = *reinterpret_cast<const int4*>(tab + k);
+    const int4 d1 = *reinterpret_cast<const int4*>(tab + k + 4);
+    const int d[FIELD_UNROLL] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+    group(k, k + FIELD_UNROLL, d);
+  }
+  if (k < n_off) {
+    int d[FIELD_UNROLL];
+#pragma unroll
+    for (int u = 0; u < FIELD_UNROLL; ++u) d[u] = k + u < n_off ? tab[k + u] : 0;
+    group(k, n_off, d);
+  }
+  // the failing group, once per cell, up to its first failure
+#pragma unroll
+  for (int c = 0; c < FIELD_CPT; ++c) {
+    if (!found[c]) continue;
+    for (int kk = g_fail[c];; ++kk) {
+      const float v = *reinterpret_cast<const float*>(wb + tab[kk] + c * kCellBytes);
+      if (v == -INFINITY) {
+        k_fail[c] = kk;
+        break;
+      }
+      if (isfinite(v)) {
+        cnt_b[c] = cnt_b[c] + 1.0f;
+        sum_b[c] = sum_b[c] + v;
+      }
     }
   }
+#else
+  // one spiral offset for every cell of the thread, the first-failure
+  // bookkeeping at every step (FIELD_FIRST_FAIL 0: as selects; 1: behind a
+  // warp vote, taken only where some cell of the warp meets its first
+  // failure)
+  auto step = [&](int d, int k) {
+    float v[FIELD_CPT];
+    bool first = false;
+#pragma unroll
+    for (int c = 0; c < FIELD_CPT; ++c) {
+      v[c] = *reinterpret_cast<const float*>(wb + d + c * kCellBytes);
+      if (isfinite(v[c])) {
+        cnt[c] = cnt[c] + 1.0f;
+        ssum[c] = ssum[c] + v[c];
+      }
+      first = first || (v[c] == -INFINITY && !found[c]);
+    }
+    if (FIELD_FIRST_FAIL == 0 || __any_sync(0xffffffffu, first)) {
+#pragma unroll
+      for (int c = 0; c < FIELD_CPT; ++c) {
+        if (v[c] == -INFINITY && !found[c]) {
+          found[c] = true;
+          k_fail[c] = k;
+          cnt_b[c] = cnt[c];
+          sum_b[c] = ssum[c];
+        }
+      }
+    }
+  };
+
+  const int n8 = n_off / FIELD_UNROLL * FIELD_UNROLL;
+  int k = 0;
+  for (; k < n8; k += FIELD_UNROLL) {
+    const int4 d0 = *reinterpret_cast<const int4*>(tab + k);
+    const int4 d1 = *reinterpret_cast<const int4*>(tab + k + 4);
+    step(d0.x, k);
+    step(d0.y, k + 1);
+    step(d0.z, k + 2);
+    step(d0.w, k + 3);
+    step(d1.x, k + 4);
+    step(d1.y, k + 5);
+    step(d1.z, k + 6);
+    step(d1.w, k + 7);
+  }
+  for (; k < n_off; ++k) step(tab[k], k);
+#endif
 
 #pragma unroll
-  for (int r = 0; r < FIELD_ROWS_PER_THREAD; ++r) {
-    const int gi = i0 + threadIdx.y + r * blockDim.y;
-    const int gj = j0 + lj;
+  for (int c = 0; c < FIELD_CPT; ++c) {
+    const int gi = i0 + ty + c * kRowsPerPass;
+    const int gj = j0 + tx;
     if (gi >= H || gj >= W) continue;
-    const float mean_all = ssum[r] / fmaxf(cnt[r], 1.0f);
+    const float mean_all = ssum[c] / fmaxf(cnt[c], 1.0f);
     bool ok;
     float t;
     if (rmin_zero) {
-      ok = !found[r];
+      ok = !found[c];
       t = ok ? mean_all : 0.0f;
     } else {
-      const bool hard = found[r] && (r_fail[r] <= rmin);
-      const bool inflate = found[r] && (r_fail[r] > rmin);
+      const float r_fail = found[c] ? radii[k_fail[c]] : 0.0f;
+      const bool hard = found[c] && (r_fail <= rmin);
+      const bool inflate = found[c] && (r_fail > rmin);
       // ((r_fail - rmin) / (rmax - rmin) + 1) / 2, the division by the
       // constant span as a fused multiply-add by its reciprocal
-      const float factor = __fmaf_rn(r_fail[r] - rmin, span_rcp, 1.0f) * 0.5f;
-      const float mean_b = sum_b[r] / fmaxf(cnt_b[r], 1.0f);
+      const float factor = __fmaf_rn(r_fail - rmin, span_rcp, 1.0f) * 0.5f;
+      const float mean_b = sum_b[c] / fmaxf(cnt_b[c], 1.0f);
       ok = !hard;
       t = inflate ? mean_b * factor : (hard ? 0.0f : mean_all);
     }
-    const bool empty = (cnt[r] == 0.0f) && !found[r];
-    if (empty) {
+    if (cnt[c] == 0.0f && !found[c]) {
       ok = default_tv != 0.0f;
       t = default_tv;
     }
@@ -131,45 +273,92 @@ __global__ void circle_field_kernel(const float* __restrict__ trav,
   }
 }
 
+static size_t smem_bytes(int R, int n_off, int stride) {
+  const int n_pad = (n_off + FIELD_UNROLL - 1) / FIELD_UNROLL * FIELD_UNROLL;
+  return sizeof(float) * ((size_t)n_pad + (size_t)(FIELD_TILE_H + 2 * R) * stride);
+}
+
+// Raise the kernel's dynamic shared-memory cap where a launch needs more than
+// the default 48 KB; never lower it.
+template <typename K>
+static cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int STRIDE>
+static cudaError_t launch(dim3 grid, size_t smem, cudaStream_t s, const float* trav,
+                          const uint8_t* mask, const uint8_t* in_map, int H, int W, int R,
+                          const int* deltas, const float* radii, int n_off, float default_tv,
+                          float rmin, float span_rcp, int rmin_zero, uint8_t* ok_out,
+                          float* trav_out) {
+  const cudaError_t e = allow_smem(circle_field_kernel<STRIDE>, smem);
+  if (e != cudaSuccess) return e;
+  circle_field_kernel<STRIDE><<<grid, dim3(FIELD_TILE_W, kRowsPerPass), smem, s>>>(
+      trav, mask, in_map, H, W, R, deltas, radii, n_off, default_tv, rmin, span_rcp, rmin_zero,
+      ok_out, trav_out);
+  return cudaGetLastError();
+}
+
 extern "C" {
 
-int te_circle_field_max_offsets() { return FIELD_MAX_OFFS; }
+// tile width, tile height, cells per thread, offset cap, the window strides
+void te_circle_field_geometry(int* out) {
+  out[0] = FIELD_TILE_W;
+  out[1] = FIELD_TILE_H;
+  out[2] = FIELD_CPT;
+  out[3] = FIELD_MAX_OFFS;
+  out[4] = 64;
+  out[5] = 128;
+}
 
 const char* te_circle_field_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// offs: host (n_off, 2) int32 in spiral order; radii: host (n_off,) float32.
-// trav (H, W) f32, mask (H, W) uint8, in_map (H, W) uint8 or null; outputs
-// ok (H, W) uint8 and trav_out (H, W) f32, all device pointers. Returns
-// cudaGetLastError() after the launch.
-int te_circle_field(const float* trav, const uint8_t* mask, const uint8_t* in_map,
-                    int H, int W, const int* offs, const float* radii, int n_off,
-                    float default_tv, float rmin, float span_rcp, int rmin_zero,
+// Resident blocks per SM for a launch with this window stride and shared
+// memory, or -1 on error.
+int te_circle_field_occupancy(int stride, int smem) {
+  int blocks = -1;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (stride == 64) {
+    e = allow_smem(circle_field_kernel<64>, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, circle_field_kernel<64>,
+                                                        kThreads, smem);
+  } else if (stride == 128) {
+    e = allow_smem(circle_field_kernel<128>, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, circle_field_kernel<128>,
+                                                        kThreads, smem);
+  }
+  return e == cudaSuccess ? blocks : -1;
+}
+
+// deltas (n_off,) int32 and radii (n_off,) float32: device tables in spiral
+// order (ops/field_kernel.py::device_tables); R: the spiral reach; stride:
+// the window row stride the deltas were built for; smem: the launch plan's
+// shared memory, which must equal this file's count. trav (H, W) f32, mask
+// (H, W) uint8, in_map (H, W) uint8 or null; outputs ok (H, W) uint8 and
+// trav_out (H, W) f32, all device pointers. Returns cudaGetLastError() after
+// the launch.
+int te_circle_field(const float* trav, const uint8_t* mask, const uint8_t* in_map, int H,
+                    int W, int R, const int* deltas, const float* radii, int n_off, int stride,
+                    int smem, float default_tv, float rmin, float span_rcp, int rmin_zero,
                     uint8_t* ok_out, float* trav_out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_off < 1 || n_off > FIELD_MAX_OFFS) return (int)cudaErrorInvalidValue;
-  int R = 0;
-  for (int k = 0; k < 2 * n_off; ++k) R = max(R, abs(offs[k]));
-  cudaError_t e = cudaMemcpyToSymbolAsync(c_offs, offs, sizeof(int2) * n_off, 0,
-                                          cudaMemcpyHostToDevice, s);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaMemcpyToSymbolAsync(c_radii, radii, sizeof(float) * n_off, 0,
-                              cudaMemcpyHostToDevice, s);
-  if (e != cudaSuccess) return (int)e;
-  const int E = FIELD_TILE + 2 * R;
-  const size_t smem = sizeof(float) * (size_t)E * E;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(circle_field_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 block(FIELD_TILE, FIELD_TILE / FIELD_ROWS_PER_THREAD);
-  dim3 grid((W + FIELD_TILE - 1) / FIELD_TILE, (H + FIELD_TILE - 1) / FIELD_TILE);
-  circle_field_kernel<<<grid, block, smem, s>>>(trav, mask, in_map, H, W, R, n_off,
-                                                default_tv, rmin, span_rcp, rmin_zero,
-                                                ok_out, trav_out);
-  return (int)cudaGetLastError();
+  if (n_off < 1 || n_off > FIELD_MAX_OFFS || R < 0 || FIELD_TILE_W + 2 * R > stride ||
+      (size_t)smem != smem_bytes(R, n_off, stride))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + FIELD_TILE_W - 1) / FIELD_TILE_W, (H + FIELD_TILE_H - 1) / FIELD_TILE_H);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (stride == 64)
+    e = launch<64>(grid, smem, s, trav, mask, in_map, H, W, R, deltas, radii, n_off, default_tv,
+                   rmin, span_rcp, rmin_zero, ok_out, trav_out);
+  else if (stride == 128)
+    e = launch<128>(grid, smem, s, trav, mask, in_map, H, W, R, deltas, radii, n_off,
+                    default_tv, rmin, span_rcp, rmin_zero, ok_out, trav_out);
+  return (int)e;
 }
 
 }  // extern "C"

@@ -13,6 +13,7 @@ The dense circle field's plain version lives here; its CUDA kernel is in
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -193,11 +194,12 @@ def check_circles(
     return ok.reshape(batch_shape), trav.reshape(batch_shape)
 
 
+@functools.lru_cache(maxsize=None)
 def field_tables(radius_max: float, resolution: float) -> Tuple[np.ndarray, np.ndarray]:
     """Spiral offsets (K, 2) int32 and their radii (K,) float32 for a query at
     a cell center: the outer-ring Euclidean re-check is static per offset,
     so excluded offsets leave the order. Radii are computed in float64 and
-    rounded once."""
+    rounded once. Cached; the arrays are read-only."""
     offs_np, rings_np = spiral_order(radius_max, resolution)
     n_rings = int(math.ceil(radius_max / resolution - 1e-12))
     keep = np.ones(len(offs_np), dtype=bool)
@@ -206,7 +208,10 @@ def field_tables(radius_max: float, resolution: float) -> Tuple[np.ndarray, np.n
     keep[outer] = d2[outer] <= radius_max * radius_max
     offs_np = offs_np[keep]
     radii = np.sqrt(np.sum(offs_np.astype(np.float64) ** 2, axis=1)) * resolution
-    return offs_np.astype(np.int32), radii.astype(np.float32)
+    offs_np, radii = offs_np.astype(np.int32), radii.astype(np.float32)
+    offs_np.flags.writeable = False
+    radii.flags.writeable = False
+    return offs_np, radii
 
 
 def dense_circle_field(

@@ -1,19 +1,22 @@
-"""The map update (filter chain + dense veto fields) and its CUDA kernel.
+"""The map update (filter chain + dense veto fields) and its CUDA kernels.
 
 ``fused_update`` is the update the estimator runs: on a CUDA tensor it
 launches kernel 1 (``csrc/fused_update.cu``, the port of the TPU kernel
-``ops/pallas_chain.py::fused_update``); on a CPU tensor it runs
-``fused_update_plain``, the same function as whole-plane torch ops, which
-is also the kernel's referee on the card.
+``ops/pallas_chain.py::fused_update``: a layers kernel, then a veto kernel);
+on a CPU tensor it runs ``fused_update_plain``, the same function as
+whole-plane torch ops, which is also the kernels' referee on the card.
 
 Both return the layer set of the JAX ``_update_step``: the chain layers,
 ``slope_ok`` / ``step_ok`` / (``roughness_ok``) / ``traversable_mask`` and
-the float ``*_footprint`` layers.
+the float ``*_footprint`` layers. On CUDA the kernels write every one of
+them; nothing else runs. The launch geometry (``launch_plan``) is computed
+here, on the host, so the CPU tests reach it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Dict, Tuple
 
@@ -25,9 +28,12 @@ from traversability_estimation_tpu_torch.ops import filters, veto
 from traversability_estimation_tpu_torch.ops.filters import ChainConfig, f32, rcp
 from traversability_estimation_tpu_torch.ops.veto import VetoConfig
 
-# capacities of the kernel's stencil tables (csrc/fused_update.cu)
+# the kernels' geometry and the capacities of their stencil tables
+# (csrc/fused_update.cu; checked against the library when it loads)
+TILE_W = 32
+TILE_H = (4, 16)  # layers kernel, veto kernel
 MAX_WIN, MAX_COUNT, MAX_CAND, MAX_DIRS, MAX_FUSE = 32, 128, 64, 8, 8
-TILE = 32
+SMEM_LIMIT = 232_448  # dynamic + static shared memory one block may use on an H100
 
 _FUSE_LAYERS = {
     "traversability_slope": 0,
@@ -132,17 +138,18 @@ def kernel_params(chain_cfg: ChainConfig, veto_cfg: VetoConfig) -> FusedParams:
     p.slope_ncrit = f32(veto_cfg.slope_n_critical)
     p.rough_ncrit = f32(veto_cfg.roughness_n_critical)
 
-    # stage reaches (cells beyond the output tile each stage must cover)
+    # reaches (cells beyond the output tile each kernel's planes must cover)
     r_cand = _reach([(oi, oj) for oi, oj, _ in cand])
     walk = max((k * max(abs(di), abs(dj)) for di, dj, k in dirs), default=0)
-    p.r_ray = r_cand
-    p.r_mid = max(r_cand + (1 if dirs else 0), _reach(cnt))
-    p.r_sh = p.r_mid + _reach(s2)
+    p.r_sh = _reach(s2)
     p.halo = max(
         p.r_sh + _reach(s1),
-        p.r_mid + max(_reach(mom_n), _reach(mom_r) if chain_cfg.compute_roughness else 0),
-        p.r_ray + walk,
+        _reach(mom_n),
+        _reach(mom_r) if chain_cfg.compute_roughness else 0,
+        walk,
     )
+    p.r_ray = r_cand
+    p.r_mid = max(r_cand + (1 if dirs else 0), _reach(cnt))
     return p
 
 
@@ -163,86 +170,178 @@ def fused_update_plain(
     return layers
 
 
+@dataclasses.dataclass(frozen=True)
+class UpdatePlan:
+    """The two launches of kernel 1: each one's grid (x over columns, y over
+    rows) and block, and each kernel's dynamic shared memory (planes) and
+    static shared memory (linear tap tables)."""
+
+    grid_layers: Tuple[int, int]
+    block_layers: Tuple[int, int]
+    grid_veto: Tuple[int, int]
+    block_veto: Tuple[int, int]
+    smem_layers: int
+    smem_veto: int
+    static_layers: int = 4 * (4 * MAX_WIN + MAX_DIRS)
+    static_veto: int = 4 * (MAX_COUNT + MAX_CAND + MAX_DIRS)
+
+
+def launch_plan(
+    params: FusedParams, H: int, W: int, tile_h: Tuple[int, int] = TILE_H
+) -> UpdatePlan:
+    """Kernel 1's launches for an (H, W) map. The layers kernel holds the
+    walk-coded elevation window (tile + halo) and the step-height plane
+    (tile + r_sh) in f32; the veto kernel the raw elevation and candidate
+    planes (f32) and the zero-flag and ray-bit planes (u8), all over the
+    tile + r_mid. Raises where a block would need more shared memory than
+    the card has."""
+    th_l, th_v = tile_h
+
+    def plane(reach, th):
+        return (TILE_W + 2 * reach) * (th + 2 * reach)
+
+    plan = UpdatePlan(
+        grid_layers=(-(-W // TILE_W), -(-H // th_l)),
+        block_layers=(TILE_W, th_l),
+        grid_veto=(-(-W // TILE_W), -(-H // th_v)),
+        block_veto=(TILE_W, th_v),
+        smem_layers=4 * (plane(params.halo, th_l) + plane(params.r_sh, th_l)),
+        smem_veto=(2 * 4 + 2) * plane(params.r_mid, th_v),
+    )
+    need = max(plan.smem_layers + plan.static_layers, plan.smem_veto + plan.static_veto)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"fused_update: the stencils' reach (halo {params.halo}) needs {need} bytes of "
+            f"shared memory per block, more than the {SMEM_LIMIT} an H100 block has"
+        )
+    return plan
+
+
 _lib = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare kernel 1's C interface on a loaded library."""
+    ptr = ctypes.c_void_p
+    lib.te_fused_update.argtypes = [
+        ptr, ctypes.c_int, ctypes.c_int, ctypes.POINTER(FusedParams), ctypes.c_int,
+        ctypes.c_int, *([ptr] * 13),
+    ]
+    lib.te_fused_update.restype = ctypes.c_int
+    lib.te_fused_update_params_size.restype = ctypes.c_int
+    lib.te_fused_update_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.te_fused_update_geometry.restype = None
+    lib.te_fused_update_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.te_fused_update_occupancy.restype = ctypes.c_int
+    lib.te_fused_update_error_string.argtypes = [ctypes.c_int]
+    lib.te_fused_update_error_string.restype = ctypes.c_char_p
+    if lib.te_fused_update_params_size() != ctypes.sizeof(FusedParams):
+        raise RuntimeError("FusedParams layout differs between Python and CUDA")
+    return lib
+
+
+def geometry(lib: ctypes.CDLL) -> Tuple[int, ...]:
+    """(tile width, layers and veto tile heights, table caps...) as the
+    library was compiled."""
+    out = (ctypes.c_int * 8)()
+    lib.te_fused_update_geometry(out)
+    return tuple(out)
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = build.load("fused_update")
-        lib.te_fused_update.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.POINTER(FusedParams),
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.te_fused_update.restype = ctypes.c_int
-        lib.te_fused_update_params_size.restype = ctypes.c_int
-        lib.te_fused_update_error_string.argtypes = [ctypes.c_int]
-        lib.te_fused_update_error_string.restype = ctypes.c_char_p
-        if lib.te_fused_update_params_size() != ctypes.sizeof(FusedParams):
-            raise RuntimeError("FusedParams layout differs between Python and CUDA")
+        lib = bind(build.load("fused_update"))
+        want = (TILE_W, *TILE_H, MAX_WIN, MAX_COUNT, MAX_CAND, MAX_DIRS, MAX_FUSE)
+        if geometry(lib) != want:
+            raise RuntimeError(f"fused_update kernel geometry {geometry(lib)} != {want}")
         _lib = lib
     return _lib
 
 
-def launch_kernel(
-    elevation: torch.Tensor, chain_cfg: ChainConfig, veto_cfg: VetoConfig
-) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """One launch of kernel 1 on a CUDA elevation plane: the four float
-    layers and the uint8 veto bit plane (bit 0 slope_ok, 1 step_ok,
-    2 roughness_ok, 3 traversable_mask)."""
+def launch(
+    lib: ctypes.CDLL,
+    elevation: torch.Tensor,
+    chain_cfg: ChainConfig,
+    veto_cfg: VetoConfig,
+    tile_h: Tuple[int, int] = TILE_H,
+) -> Dict[str, torch.Tensor]:
+    """Kernel 1 (two launches) of a library on an (H, W) CUDA elevation
+    plane: every layer of ``fused_update_plain``."""
     if elevation.device.type != "cuda" or elevation.dim() != 2:
         raise ValueError("fused_update kernel: needs an (H, W) CUDA tensor")
     params = kernel_params(chain_cfg, veto_cfg)
     elev = elevation.to(torch.float32).contiguous()
     H, W = elev.shape
-    names = ("traversability", "traversability_slope", "traversability_step",
-             "traversability_roughness")
-    out = {n: torch.empty((H, W), dtype=torch.float32, device=elev.device) for n in names}
-    bits = torch.empty((H, W), dtype=torch.uint8, device=elev.device)
-    if H * W:
-        lib = _library()
-        with torch.cuda.device(elev.device):
-            rc = lib.te_fused_update(
-                elev.data_ptr(), H, W, ctypes.byref(params),
-                *(out[n].data_ptr() for n in names), bits.data_ptr(),
-                torch.cuda.current_stream(elev.device).cuda_stream,
-            )
-        if rc != 0:
-            raise RuntimeError(
-                f"fused_update kernel: {lib.te_fused_update_error_string(rc).decode()}"
-            )
-        fused_update.launches += 1
-    if not chain_cfg.compute_roughness:
-        del out["traversability_roughness"]
-    return out, bits
+    plan = launch_plan(params, H, W, tile_h)
+    rough = chain_cfg.compute_roughness
+    check = veto_cfg.check_roughness
+    dev = elev.device
+
+    def plane(dtype):
+        return torch.empty((H, W), dtype=dtype, device=dev)
+
+    f32_names = ["traversability", "traversability_slope", "traversability_step"]
+    f32_names += ["traversability_roughness"] if rough else []
+    ok_names = ["slope_ok", "step_ok"] + (["roughness_ok"] if check else []) + ["traversable_mask"]
+    fp_names = ["slope_footprint", "step_footprint"] + (["roughness_footprint"] if check else [])
+    out = {n: plane(torch.float32) for n in f32_names + fp_names}
+    out.update({n: plane(torch.bool) for n in ok_names})
+    if H * W == 0:
+        return out
+    walk = plane(torch.uint8)
+
+    def ptr(name):
+        return out[name].data_ptr() if name in out else None
+
+    with torch.cuda.device(dev):
+        rc = lib.te_fused_update(
+            elev.data_ptr(), H, W, ctypes.byref(params), plan.smem_layers, plan.smem_veto,
+            *(ptr(n) for n in ("traversability", "traversability_slope",
+                               "traversability_step", "traversability_roughness")),
+            walk.data_ptr(),
+            *(ptr(n) for n in ("slope_ok", "step_ok", "roughness_ok", "traversable_mask",
+                               "slope_footprint", "step_footprint", "roughness_footprint")),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_update kernel: {lib.te_fused_update_error_string(rc).decode()}")
+    return out
 
 
 def fused_update(
     elevation: torch.Tensor, chain_cfg: ChainConfig, veto_cfg: VetoConfig
 ) -> Dict[str, torch.Tensor]:
-    """The map update. CPU tensor: the plain version. CUDA tensor: one launch
-    of kernel 1, then the ``*_ok`` planes unpacked from its veto bit plane and
-    the ``*_footprint`` layers derived by torch elementwise ops."""
+    """The map update. CPU tensor: the plain version. CUDA tensor: kernel 1,
+    which writes every layer. ``fused_update.launches`` counts updates that
+    ran kernel 1 (each is two kernel launches: layers, then vetoes)."""
     if elevation.device.type == "cpu":
         return fused_update_plain(elevation, chain_cfg, veto_cfg)
-    out, bits = launch_kernel(elevation, chain_cfg, veto_cfg)
-    out["slope_ok"] = (bits & 1) != 0
-    out["step_ok"] = (bits & 2) != 0
-    if veto_cfg.check_roughness:
-        out["roughness_ok"] = (bits & 4) != 0
-    out["traversable_mask"] = (bits & 8) != 0
-    out.update(veto.footprint_layers(out, out, veto_cfg))
+    out = launch(_library(), elevation, chain_cfg, veto_cfg)
+    if elevation.numel():
+        fused_update.launches += 1
     return out
 
 
 fused_update.launches = 0
 
 
-def kernel_bytes(H: int, W: int) -> int:
-    """Bytes kernel 1 must move: the elevation read once, four f32 layers and
-    the uint8 veto plane written once."""
-    return H * W * (4 + 4 * 4 + 1)
+def occupancy(plan: UpdatePlan) -> Tuple[int, int]:
+    """Resident blocks per SM of the layers and the veto kernel for this
+    plan (production library)."""
+    lib = _library()
+    return (lib.te_fused_update_occupancy(0, plan.smem_layers),
+            lib.te_fused_update_occupancy(1, plan.smem_veto))
+
+
+def kernel_bytes(chain_cfg: ChainConfig, veto_cfg: VetoConfig, H: int, W: int) -> int:
+    """Bytes kernel 1 must move: the elevation read once; the f32 layers,
+    the uint8 ``*_ok`` and mask planes and the f32 ``*_footprint`` layers
+    written once (the ray-walk scratch plane between its two launches is
+    not counted)."""
+    n_f32 = 4 if chain_cfg.compute_roughness else 3
+    n_ok = 4 if veto_cfg.check_roughness else 3
+    return H * W * (4 + 4 * n_f32 + n_ok + 4 * (n_ok - 1))
 
 
 def kernel_operations(chain_cfg: ChainConfig, veto_cfg: VetoConfig, H: int, W: int) -> int:
