@@ -3,14 +3,12 @@
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs one
 CUDA device and the CUDA toolkit (``nvcc``); without a device it exits 1
-before printing any result. ``python3 chip_smoke.py --variants`` instead
-times the kernel variants of ``kernels/build.py::VARIANTS`` against the
-production kernels at config 3 (each held bit-identical to the plain
-version) and exits.
+before printing any result.
 
 Phases (any failure exits non-zero):
 1. the card's name and power limit; build both kernels from ``csrc/``;
-   each kernel's ptxas report, launch geometry and resident blocks per SM;
+   each kernel's ptxas report, launch geometry, and resident blocks and
+   warps per SM;
 2. kernel 1 (fused map update) against its plain torch version on the card:
    the 336^2 terrain and the edge shapes 1x1, 5x400, 337x335 and 100x133
    with 4% NaN holes, with the roughness veto off and on. Bar: every layer
@@ -131,14 +129,25 @@ def main() -> None:
     k2_plan = field_kernel.device_tables(0.3 + cfg.footprint.circular_footprint_offset, res, H, W,
                                          dev)[0]
     k2_occ = field_kernel.occupancy(k2_plan)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def launch_line(grid, block, smem, occ, warps):
+        """A launch's geometry and what one SM holds of it: resident blocks
+        (the occupancy query) and resident warps (those blocks' warps, or
+        the launch's warps spread over the SMs where it has fewer)."""
+        per_block = -(-block[0] * block[1] // 32)
+        resident = min(occ * per_block, warps / n_sms)
+        return (f"grid {grid} x block {block}, smem {smem} B dynamic, {occ} resident blocks/SM, "
+                f"{resident:.1f} resident warps/SM")
+
     geometry = {
-        "fused_update": f"layers kernel grid {k1_plan.grid_layers} x block "
-                        f"{k1_plan.block_layers}, smem {k1_plan.smem_layers} B dynamic, "
-                        f"{k1_occ[0]} resident blocks/SM; veto kernel grid {k1_plan.grid_veto} x "
-                        f"block {k1_plan.block_veto}, smem {k1_plan.smem_veto} B dynamic, "
-                        f"{k1_occ[1]} resident blocks/SM",
-        "circle_field": f"grid {k2_plan.grid} x block {k2_plan.block}, smem "
-                        f"{k2_plan.smem_bytes} B dynamic, resident blocks/SM {k2_occ}",
+        "fused_update": "layers kernel " + launch_line(
+            k1_plan.grid_layers, k1_plan.block_layers, k1_plan.smem_layers, k1_occ[0],
+            k1_plan.warps[0]) + "; veto kernel " + launch_line(
+            k1_plan.grid_veto, k1_plan.block_veto, k1_plan.smem_veto, k1_occ[1],
+            k1_plan.warps[1]),
+        "circle_field": launch_line(k2_plan.grid, k2_plan.block, k2_plan.smem_bytes, k2_occ,
+                                    k2_plan.warps),
     }
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
@@ -240,11 +249,6 @@ def main() -> None:
         "337x335": synthetic_terrain(337, 335, res, seed=8),
         "100x133 4% NaN": synthetic_terrain(100, 133, res, seed=5, nan_frac=0.04),
     }
-
-    if "--variants" in sys.argv[1:]:
-        time_variants(build, update_kernel, field_kernel, footprint, cfg, terrain, dev,
-                      device_ms, check_update, query_state, same, card_line)
-        return
 
     # ---- 2. kernel 1 vs plain --------------------------------------------
     k1_err = 0.0
@@ -439,123 +443,6 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
-
-
-def time_variants(build, update_kernel, field_kernel, footprint, cfg, terrain, dev,
-                  device_ms, check_update, query_state, same, card_line):
-    """Each build of ``build.VARIANTS`` against the production kernel at
-    config 3 (kernel 1 also at 2048^2): bit-identical to the plain version,
-    then device time per call, timed twice in alternating order."""
-    import ctypes
-
-    import torch
-
-    names = list(build.VARIANTS)
-    t0 = time.perf_counter()
-    build.build(names)
-    log(f"variant build: {time.perf_counter() - t0:.1f} s wall")
-    for name in names:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
-    res = cfg.chain.resolution
-    H, W = terrain.shape
-    rmax = 0.3 + cfg.footprint.circular_footprint_offset
-    rmin = 0.3
-
-    # kernel 2 at config 3
-    state = query_state(terrain)
-    ok_p, tv_p = footprint.dense_circle_field(state, rmax, rmin)
-    plan0, deltas, radii = field_kernel.device_tables(rmax, res, H, W, dev)
-    runs = {}
-    k2_libs = {"circle_field": field_kernel._library()}
-    k2_libs.update({n: field_kernel.bind(build.load(n)) for n in names
-                    if n.startswith("circle_field")})
-    for name, lib in k2_libs.items():
-        g = field_kernel.geometry(lib)
-        plan = field_kernel.launch_plan(H, W, plan0.reach, plan0.n_offsets, g[1], g[2])
-
-        def fn(lib=lib, plan=plan):
-            return field_kernel.launch(lib, plan, deltas, radii, state, rmax, rmin)
-
-        ok_k, tv_k = fn()
-        torch.cuda.synchronize()
-        if not (torch.equal(ok_k, ok_p) and same(tv_k, tv_p)):
-            fail(f"variant {name} differs from the plain field")
-        occ = lib.te_circle_field_occupancy(plan.stride, plan.smem_bytes)
-        runs[name] = (fn, f"grid {plan.grid} block {plan.block} smem {plan.smem_bytes} B, "
-                          f"{occ} blocks/SM ({occ * plan.block[0] * plan.block[1] // 32} warps)")
-
-    # kernel 1 at config 3 and at 2048^2
-    def single_launch(lib, elev):
-        Hh, Ww = elev.shape
-        f32 = lambda: torch.empty((Hh, Ww), dtype=torch.float32, device=dev)  # noqa: E731
-        u8 = lambda: torch.empty((Hh, Ww), dtype=torch.bool, device=dev)  # noqa: E731
-        out = {"traversability": f32(), "traversability_slope": f32(),
-               "traversability_step": f32(), "traversability_roughness": f32(),
-               "slope_ok": u8(), "step_ok": u8(), "traversable_mask": u8(),
-               "slope_footprint": f32(), "step_footprint": f32()}
-        rc = lib.te_single_launch(
-            elev.data_ptr(), Hh, Ww, ctypes.byref(update_kernel.kernel_params(cfg.chain, cfg.veto)),
-            *(out[k].data_ptr() for k in ("traversability", "traversability_slope",
-                                          "traversability_step", "traversability_roughness",
-                                          "slope_ok", "step_ok")),
-            None, out["traversable_mask"].data_ptr(), out["slope_footprint"].data_ptr(),
-            out["step_footprint"].data_ptr(), None, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            fail(f"one-launch variant: error {rc}")
-        return out
-
-    big = synthetic_terrain(2048, 2048, res, seed=1)
-    params = update_kernel.kernel_params(cfg.chain, cfg.veto)
-    for label, elev_np in (("", terrain), ("@2048", big)):
-        elev = torch.as_tensor(elev_np, device=dev)
-        ref = update_kernel.fused_update_plain(elev, cfg.chain, cfg.veto)
-        k1 = {"fused_update": (update_kernel._library(), update_kernel.TILE_H)}
-        for n in names:
-            if n.startswith("fused_update_one_launch"):
-                lib = build.load(n)
-                lib.te_single_launch.argtypes = [
-                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                    ctypes.POINTER(update_kernel.FusedParams), *([ctypes.c_void_p] * 12)]
-                lib.te_single_launch.restype = ctypes.c_int
-                lib.te_single_launch_occupancy.argtypes = [
-                    ctypes.POINTER(update_kernel.FusedParams)]
-                k1[n] = (lib, None)
-            elif n.startswith("fused_update"):
-                lib = update_kernel.bind(build.load(n))
-                k1[n] = (lib, update_kernel.geometry(lib)[1:3])
-        for name, (lib, tile_h) in k1.items():
-            if tile_h is None:
-                def fn(lib=lib, elev=elev):
-                    return single_launch(lib, elev)
-
-                tile = lib.te_single_launch_tile()
-                note = (f"one launch, {tile}x{tile} tiles, "
-                        f"{lib.te_single_launch_occupancy(ctypes.byref(params))} blocks/SM")
-            else:
-                def fn(lib=lib, elev=elev, tile_h=tile_h):
-                    return update_kernel.launch(lib, elev, cfg.chain, cfg.veto, tile_h)
-
-                plan = update_kernel.launch_plan(params, *elev.shape, tile_h)
-                occ = (lib.te_fused_update_occupancy(0, plan.smem_layers),
-                       lib.te_fused_update_occupancy(1, plan.smem_veto))
-                note = (f"two launches, grids {plan.grid_layers} / {plan.grid_veto}, blocks "
-                        f"{plan.block_layers} / {plan.block_veto}, blocks/SM {occ}")
-            check_update(fn(), ref, f"variant {name}{label}")
-            runs[name + label] = (fn, note)
-        del ref
-
-    order = list(runs)
-    times = {n: [] for n in order}
-    for rep in range(2):
-        for n in (order if rep == 0 else order[::-1]):
-            times[n].append(device_ms(runs[n][0], 20 if "@2048" in n else 100))
-    rows = []
-    for n in order:
-        log(f"variant {n}: {' / '.join(f'{t:.4f}' for t in times[n])} ms ({runs[n][1]})")
-        rows.append({"name": n, "ms": times[n], "note": runs[n][1]})
-    log(json.dumps({"variants": rows, "card": card_line}))
 
 
 if __name__ == "__main__":

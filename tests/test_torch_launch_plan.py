@@ -2,10 +2,11 @@
 
 The kernels run only on the card, but their geometry is computed on the
 host (``field_kernel.launch_plan`` / ``delta_table``,
-``update_kernel.launch_plan``), so these tests check it here: the grid
-covers the map, a block's shared memory fits an H100 SM, a 336^2 map gives
-the card at least four blocks per SM, and kernel 2's linear offset deltas
-address the same window cells as the spiral table's (oi, oj).
+``update_kernel.launch_plan``) and the kernels launch the plan they are
+given, so these tests check it here: the grid covers the map, a block's
+shared memory fits an H100 SM, every launch at 336^2 gives each of the
+card's SMs at least 24 warps to switch between, and kernel 2's linear
+offset deltas address the same window cells as the spiral table's (oi, oj).
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ from traversability_estimation_tpu_torch.ops.veto import VetoConfig
 
 RES = 0.03
 H100_SMS = 132
+MIN_WARPS_PER_SM = 24  # 6 per scheduler: enough to hide a dependent chain's latency
 SMEM_LIMIT = 232_448
 SHAPES = [(1, 1), (5, 400), (337, 335), (336, 336), (100, 133), (2048, 2048)]
 
@@ -42,21 +44,25 @@ def test_plans_cover_the_map(shape):
     H, W = shape
     fp = _field_plan(H, W)
     assert _covers(fp.grid, (field_kernel.TILE_W, field_kernel.TILE_H), H, W)
-    assert fp.block[0] * fp.block[1] * field_kernel.CELLS_PER_THREAD == (
-        field_kernel.TILE_W * field_kernel.TILE_H
-    )
+    assert fp.block == (field_kernel.TILE_W, field_kernel.TILE_H)
     up = _update_plan(H, W)
     th_layers, th_veto = update_kernel.TILE_H
     assert _covers(up.grid_layers, (update_kernel.TILE_W, th_layers), H, W)
     assert _covers(up.grid_veto, (update_kernel.TILE_W, th_veto), H, W)
     assert up.block_layers == (update_kernel.TILE_W, th_layers)
     assert up.block_veto == (update_kernel.TILE_W, th_veto)
+    # the C entry point reads the plan in this order
+    assert list(up.as_c_ints()) == [
+        *up.grid_layers, *up.block_layers, up.smem_layers,
+        *up.grid_veto, *up.block_veto, up.smem_veto,
+    ]
 
 
 def test_plans_fill_the_card_at_336():
-    # the veto kernel of kernel 1 is light and not held to this
-    for grid in (_field_plan(336, 336).grid, _update_plan(336, 336).grid_layers):
-        assert grid[0] * grid[1] >= 4 * H100_SMS
+    # every launch, kernel 1's veto kernel included; one thread per cell
+    # gives 112,896 / 32 / 132 = 26.7 warps per SM before ragged tiles
+    for warps in (_field_plan(336, 336).warps, *_update_plan(336, 336).warps):
+        assert warps / H100_SMS >= MIN_WARPS_PER_SM
 
 
 def test_field_plan_shared_memory_fits():

@@ -13,9 +13,9 @@
 // count and sum before it depend on the order), so the design keeps every
 // operand on chip and spends as few instructions per (cell, offset) as it
 // can:
-//   - small tiles (FIELD_TILE_W x FIELD_TILE_H output cells, one or a few
-//     cells per thread), so a 336^2 map gives 924 blocks of 4 warps and
-//     every SM holds many warps to hide the load latency;
+//   - small tiles (FIELD_TILE_W x FIELD_TILE_H output cells, one cell per
+//     thread), so a 336^2 map gives 924 blocks of 4 warps and every SM
+//     holds many warps to hide the load latency;
 //   - the tile's window with a halo of the spiral reach R is staged once
 //     in shared memory as ONE packed plane (-inf failing cell, NaN beyond
 //     the map or outside `in_map`, else the effective traversability), in
@@ -24,9 +24,7 @@
 //     (oi + R) * stride + (oj + R), built once on the host and cached on
 //     the device; the block copies them to shared memory in bytes, and each
 //     step of the walk is one broadcast table read (4 deltas per 16-byte
-//     load), one add and one load at `cell base + delta`; further cells of
-//     a thread sit a compile-time number of rows below, so their loads take
-//     an immediate offset;
+//     load), one add and one load at `cell base + delta`;
 //   - the offset loop is unrolled by 8, so several loads are in flight;
 //   - six carries per cell stay in registers: found, the index of the
 //     first failure (its radius is read once at the end), the count and sum
@@ -44,21 +42,11 @@
 #include <stdint.h>
 
 #define FIELD_TILE_W 32
-#ifndef FIELD_TILE_H
 #define FIELD_TILE_H 4
-#endif
-#ifndef FIELD_CPT
-#define FIELD_CPT 1  // cells per thread, FIELD_TILE_H / FIELD_CPT rows apart
-#endif
-#ifndef FIELD_FIRST_FAIL
-#define FIELD_FIRST_FAIL 2  // 2: per group of offsets; 0, 1: per step (selects, vote)
-#endif
 #define FIELD_MAX_OFFS 4096
 #define FIELD_UNROLL 8
 
-constexpr int kRowsPerPass = FIELD_TILE_H / FIELD_CPT;
-constexpr int kThreads = FIELD_TILE_W * kRowsPerPass;
-static_assert(FIELD_TILE_H % FIELD_CPT == 0, "cells per thread must divide the tile height");
+constexpr int kThreads = FIELD_TILE_W * FIELD_TILE_H;
 
 __device__ __forceinline__ int padded_offsets(int n_off) {
   return (n_off + FIELD_UNROLL - 1) / FIELD_UNROLL * FIELD_UNROLL;
@@ -85,7 +73,7 @@ circle_field_kernel(const float* __restrict__ trav, const uint8_t* __restrict__ 
   // row
   const int rows = FIELD_TILE_H + 2 * R, cols = FIELD_TILE_W + 2 * R;
 #pragma unroll 4
-  for (int r = ty; r < rows; r += kRowsPerPass) {
+  for (int r = ty; r < rows; r += FIELD_TILE_H) {
     const int gi = i0 - R + r;
 #pragma unroll
     for (int c = tx; c < STRIDE; c += FIELD_TILE_W) {
@@ -104,22 +92,6 @@ circle_field_kernel(const float* __restrict__ trav, const uint8_t* __restrict__ 
   }
   __syncthreads();
 
-  const char* wb = reinterpret_cast<const char*>(win + ty * STRIDE + tx);
-  constexpr int kCellBytes = 4 * kRowsPerPass * STRIDE;
-  bool found[FIELD_CPT];
-  int k_fail[FIELD_CPT];
-  float cnt_b[FIELD_CPT], cnt[FIELD_CPT], sum_b[FIELD_CPT], ssum[FIELD_CPT];
-#pragma unroll
-  for (int c = 0; c < FIELD_CPT; ++c) {
-    found[c] = false;
-    k_fail[c] = 0;
-    cnt_b[c] = 0.0f;
-    cnt[c] = 0.0f;
-    sum_b[c] = 0.0f;
-    ssum[c] = 0.0f;
-  }
-
-#if FIELD_FIRST_FAIL == 2
   // Groups of FIELD_UNROLL offsets. A step only adds a passing value to the
   // count and sum and ORs "some offset of this group fails"; at the end of
   // the group a cell that meets its first failure there keeps the group's
@@ -129,38 +101,29 @@ circle_field_kernel(const float* __restrict__ trav, const uint8_t* __restrict__ 
   // carry the plain version's bits. The plain version adds 0 for a cell
   // that does not pass; a sum that starts at +0 and adds finite values is
   // never -0, so skipping that add gives the same bits.
-  int g_fail[FIELD_CPT];
+  const char* wb = reinterpret_cast<const char*>(win + ty * STRIDE + tx);
+  bool found = false;
+  int g_fail = 0, k_fail = 0;
+  float cnt_b = 0.0f, cnt = 0.0f, sum_b = 0.0f, ssum = 0.0f;
   auto group = [&](int k0, int kn, const int* d) {
-    float gs_cnt[FIELD_CPT], gs_sum[FIELD_CPT];
-    bool fails[FIELD_CPT];
-#pragma unroll
-    for (int c = 0; c < FIELD_CPT; ++c) {
-      gs_cnt[c] = cnt[c];
-      gs_sum[c] = ssum[c];
-      fails[c] = false;
-    }
+    const float gs_cnt = cnt, gs_sum = ssum;
+    bool fails = false;
 #pragma unroll
     for (int u = 0; u < FIELD_UNROLL; ++u) {
       if (k0 + u < kn) {
-#pragma unroll
-        for (int c = 0; c < FIELD_CPT; ++c) {
-          const float v = *reinterpret_cast<const float*>(wb + d[u] + c * kCellBytes);
-          if (isfinite(v)) {
-            cnt[c] = cnt[c] + 1.0f;
-            ssum[c] = ssum[c] + v;
-          }
-          fails[c] = fails[c] || v == -INFINITY;
+        const float v = *reinterpret_cast<const float*>(wb + d[u]);
+        if (isfinite(v)) {
+          cnt = cnt + 1.0f;
+          ssum = ssum + v;
         }
+        fails = fails || v == -INFINITY;
       }
     }
-#pragma unroll
-    for (int c = 0; c < FIELD_CPT; ++c) {
-      if (fails[c] && !found[c]) {
-        found[c] = true;
-        g_fail[c] = k0;
-        cnt_b[c] = gs_cnt[c];
-        sum_b[c] = gs_sum[c];
-      }
+    if (fails && !found) {
+      found = true;
+      g_fail = k0;
+      cnt_b = gs_cnt;
+      sum_b = gs_sum;
     }
   };
 
@@ -179,98 +142,46 @@ circle_field_kernel(const float* __restrict__ trav, const uint8_t* __restrict__ 
     group(k, n_off, d);
   }
   // the failing group, once per cell, up to its first failure
-#pragma unroll
-  for (int c = 0; c < FIELD_CPT; ++c) {
-    if (!found[c]) continue;
-    for (int kk = g_fail[c];; ++kk) {
-      const float v = *reinterpret_cast<const float*>(wb + tab[kk] + c * kCellBytes);
+  if (found) {
+    for (int kk = g_fail;; ++kk) {
+      const float v = *reinterpret_cast<const float*>(wb + tab[kk]);
       if (v == -INFINITY) {
-        k_fail[c] = kk;
+        k_fail = kk;
         break;
       }
       if (isfinite(v)) {
-        cnt_b[c] = cnt_b[c] + 1.0f;
-        sum_b[c] = sum_b[c] + v;
+        cnt_b = cnt_b + 1.0f;
+        sum_b = sum_b + v;
       }
     }
   }
-#else
-  // one spiral offset for every cell of the thread, the first-failure
-  // bookkeeping at every step (FIELD_FIRST_FAIL 0: as selects; 1: behind a
-  // warp vote, taken only where some cell of the warp meets its first
-  // failure)
-  auto step = [&](int d, int k) {
-    float v[FIELD_CPT];
-    bool first = false;
-#pragma unroll
-    for (int c = 0; c < FIELD_CPT; ++c) {
-      v[c] = *reinterpret_cast<const float*>(wb + d + c * kCellBytes);
-      if (isfinite(v[c])) {
-        cnt[c] = cnt[c] + 1.0f;
-        ssum[c] = ssum[c] + v[c];
-      }
-      first = first || (v[c] == -INFINITY && !found[c]);
-    }
-    if (FIELD_FIRST_FAIL == 0 || __any_sync(0xffffffffu, first)) {
-#pragma unroll
-      for (int c = 0; c < FIELD_CPT; ++c) {
-        if (v[c] == -INFINITY && !found[c]) {
-          found[c] = true;
-          k_fail[c] = k;
-          cnt_b[c] = cnt[c];
-          sum_b[c] = ssum[c];
-        }
-      }
-    }
-  };
 
-  const int n8 = n_off / FIELD_UNROLL * FIELD_UNROLL;
-  int k = 0;
-  for (; k < n8; k += FIELD_UNROLL) {
-    const int4 d0 = *reinterpret_cast<const int4*>(tab + k);
-    const int4 d1 = *reinterpret_cast<const int4*>(tab + k + 4);
-    step(d0.x, k);
-    step(d0.y, k + 1);
-    step(d0.z, k + 2);
-    step(d0.w, k + 3);
-    step(d1.x, k + 4);
-    step(d1.y, k + 5);
-    step(d1.z, k + 6);
-    step(d1.w, k + 7);
+  const int gi = i0 + ty, gj = j0 + tx;
+  if (gi >= H || gj >= W) return;
+  const float mean_all = ssum / fmaxf(cnt, 1.0f);
+  bool ok;
+  float t;
+  if (rmin_zero) {
+    ok = !found;
+    t = ok ? mean_all : 0.0f;
+  } else {
+    const float r_fail = found ? radii[k_fail] : 0.0f;
+    const bool hard = found && (r_fail <= rmin);
+    const bool inflate = found && (r_fail > rmin);
+    // ((r_fail - rmin) / (rmax - rmin) + 1) / 2, the division by the
+    // constant span as a fused multiply-add by its reciprocal
+    const float factor = __fmaf_rn(r_fail - rmin, span_rcp, 1.0f) * 0.5f;
+    const float mean_b = sum_b / fmaxf(cnt_b, 1.0f);
+    ok = !hard;
+    t = inflate ? mean_b * factor : (hard ? 0.0f : mean_all);
   }
-  for (; k < n_off; ++k) step(tab[k], k);
-#endif
-
-#pragma unroll
-  for (int c = 0; c < FIELD_CPT; ++c) {
-    const int gi = i0 + ty + c * kRowsPerPass;
-    const int gj = j0 + tx;
-    if (gi >= H || gj >= W) continue;
-    const float mean_all = ssum[c] / fmaxf(cnt[c], 1.0f);
-    bool ok;
-    float t;
-    if (rmin_zero) {
-      ok = !found[c];
-      t = ok ? mean_all : 0.0f;
-    } else {
-      const float r_fail = found[c] ? radii[k_fail[c]] : 0.0f;
-      const bool hard = found[c] && (r_fail <= rmin);
-      const bool inflate = found[c] && (r_fail > rmin);
-      // ((r_fail - rmin) / (rmax - rmin) + 1) / 2, the division by the
-      // constant span as a fused multiply-add by its reciprocal
-      const float factor = __fmaf_rn(r_fail - rmin, span_rcp, 1.0f) * 0.5f;
-      const float mean_b = sum_b[c] / fmaxf(cnt_b[c], 1.0f);
-      ok = !hard;
-      t = inflate ? mean_b * factor : (hard ? 0.0f : mean_all);
-    }
-    if (cnt[c] == 0.0f && !found[c]) {
-      ok = default_tv != 0.0f;
-      t = default_tv;
-    }
-    const long g = (long)gi * W + gj;
-    ok_out[g] = ok ? 1 : 0;
-    trav_out[g] = t;
+  if (cnt == 0.0f && !found) {
+    ok = default_tv != 0.0f;
+    t = default_tv;
   }
+  const long g = (long)gi * W + gj;
+  ok_out[g] = ok ? 1 : 0;
+  trav_out[g] = t;
 }
 
 static size_t smem_bytes(int R, int n_off, int stride) {
@@ -286,31 +197,29 @@ static cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// The launch plan's grid and block tile an (H, W) map with this file's tile:
+// every cell covered, no block wholly outside.
+static bool plan_tiles_map(dim3 grid, dim3 block, int H, int W) {
+  return block.x == FIELD_TILE_W && block.y == FIELD_TILE_H && block.z == 1 && grid.z == 1 &&
+         (int)grid.x * FIELD_TILE_W >= W && ((int)grid.x - 1) * FIELD_TILE_W < W &&
+         (int)grid.y * FIELD_TILE_H >= H && ((int)grid.y - 1) * FIELD_TILE_H < H;
+}
+
 template <int STRIDE>
-static cudaError_t launch(dim3 grid, size_t smem, cudaStream_t s, const float* trav,
+static cudaError_t launch(dim3 grid, dim3 block, size_t smem, cudaStream_t s, const float* trav,
                           const uint8_t* mask, const uint8_t* in_map, int H, int W, int R,
                           const int* deltas, const float* radii, int n_off, float default_tv,
                           float rmin, float span_rcp, int rmin_zero, uint8_t* ok_out,
                           float* trav_out) {
   const cudaError_t e = allow_smem(circle_field_kernel<STRIDE>, smem);
   if (e != cudaSuccess) return e;
-  circle_field_kernel<STRIDE><<<grid, dim3(FIELD_TILE_W, kRowsPerPass), smem, s>>>(
+  circle_field_kernel<STRIDE><<<grid, block, smem, s>>>(
       trav, mask, in_map, H, W, R, deltas, radii, n_off, default_tv, rmin, span_rcp, rmin_zero,
       ok_out, trav_out);
   return cudaGetLastError();
 }
 
 extern "C" {
-
-// tile width, tile height, cells per thread, offset cap, the window strides
-void te_circle_field_geometry(int* out) {
-  out[0] = FIELD_TILE_W;
-  out[1] = FIELD_TILE_H;
-  out[2] = FIELD_CPT;
-  out[3] = FIELD_MAX_OFFS;
-  out[4] = 64;
-  out[5] = 128;
-}
 
 const char* te_circle_field_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -337,26 +246,29 @@ int te_circle_field_occupancy(int stride, int smem) {
 
 // deltas (n_off,) int32 and radii (n_off,) float32: device tables in spiral
 // order (ops/field_kernel.py::device_tables); R: the spiral reach; stride:
-// the window row stride the deltas were built for; smem: the launch plan's
-// shared memory, which must equal this file's count. trav (H, W) f32, mask
-// (H, W) uint8, in_map (H, W) uint8 or null; outputs ok (H, W) uint8 and
-// trav_out (H, W) f32, all device pointers. Returns cudaGetLastError() after
-// the launch.
+// the window row stride the deltas were built for. grid_x/y, block_x/y,
+// smem: the launch plan, launched as given once it is checked against this
+// file's tile and shared-memory count (cudaErrorInvalidValue where they
+// differ). trav (H, W) f32, mask (H, W) uint8, in_map (H, W) uint8 or null;
+// outputs ok (H, W) uint8 and trav_out (H, W) f32, all device pointers.
+// Returns cudaGetLastError() after the launch.
 int te_circle_field(const float* trav, const uint8_t* mask, const uint8_t* in_map, int H,
                     int W, int R, const int* deltas, const float* radii, int n_off, int stride,
-                    int smem, float default_tv, float rmin, float span_rcp, int rmin_zero,
-                    uint8_t* ok_out, float* trav_out, void* stream) {
+                    int grid_x, int grid_y, int block_x, int block_y, int smem, float default_tv,
+                    float rmin, float span_rcp, int rmin_zero, uint8_t* ok_out, float* trav_out,
+                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(grid_x, grid_y), block(block_x, block_y);
   if (n_off < 1 || n_off > FIELD_MAX_OFFS || R < 0 || FIELD_TILE_W + 2 * R > stride ||
+      grid_x < 1 || grid_y < 1 || !plan_tiles_map(grid, block, H, W) ||
       (size_t)smem != smem_bytes(R, n_off, stride))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + FIELD_TILE_W - 1) / FIELD_TILE_W, (H + FIELD_TILE_H - 1) / FIELD_TILE_H);
   cudaError_t e = cudaErrorInvalidValue;
   if (stride == 64)
-    e = launch<64>(grid, smem, s, trav, mask, in_map, H, W, R, deltas, radii, n_off, default_tv,
-                   rmin, span_rcp, rmin_zero, ok_out, trav_out);
+    e = launch<64>(grid, block, smem, s, trav, mask, in_map, H, W, R, deltas, radii, n_off,
+                   default_tv, rmin, span_rcp, rmin_zero, ok_out, trav_out);
   else if (stride == 128)
-    e = launch<128>(grid, smem, s, trav, mask, in_map, H, W, R, deltas, radii, n_off,
+    e = launch<128>(grid, block, smem, s, trav, mask, in_map, H, W, R, deltas, radii, n_off,
                     default_tv, rmin, span_rcp, rmin_zero, ok_out, trav_out);
   return (int)e;
 }

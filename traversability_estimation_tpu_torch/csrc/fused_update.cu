@@ -14,8 +14,8 @@
 // operations (9-cell moments, a 4-sweep 3x3 Jacobi with IEEE divisions and
 // square roots, the acos polynomial) and the step veto another ~800 (8
 // bounded ray walks of up to 9 cells). The design:
-//   1. fused_layers_kernel, one thread per cell of a 32 x 4 tile (924
-//      blocks on a 336^2 map): the elevation window (tile + the stencil and
+//   1. fused_layers_kernel, one thread per cell of a 32 x 8 tile (462
+//      blocks of 8 warps on a 336^2 map): the elevation window (tile + the stencil and
 //      walk reach, 9 cells at the defaults) in shared memory, coded once for
 //      the walk (NaN beyond the map, -inf for an in-map hole, else the
 //      elevation); the step height over the tile + 1; then per cell the
@@ -45,12 +45,8 @@
 #include <stdint.h>
 
 #define K1_TILE_W 32
-#ifndef K1_TILE_H
-#define K1_TILE_H 4  // layers kernel
-#endif
-#ifndef K1V_TILE_H
+#define K1_TILE_H 8    // layers kernel
 #define K1V_TILE_H 16  // veto kernel: light, and its halo costs less on a taller tile
-#endif
 #define K1_THREADS (K1_TILE_W * K1_TILE_H)
 #define K1V_THREADS (K1_TILE_W * K1V_TILE_H)
 #define MAX_WIN 32
@@ -59,7 +55,6 @@
 #define MAX_DIRS 8
 #define MAX_FUSE 8
 static_assert(K1_THREADS >= MAX_WIN + MAX_DIRS, "the table prologue needs one thread per entry");
-static_assert(K1V_TILE_H >= 1, "veto tile height");
 
 // Mirrored field by field by ops/update_kernel.py::FusedParams.
 struct FusedParams {
@@ -536,22 +531,17 @@ static cudaError_t allow_smem(const void* kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// The launch plan's grid and block tile an (H, W) map with this tile:
+// every cell covered, no block wholly outside.
+static bool plan_tiles_map(const int* grid, const int* block, int tile_h, int H, int W) {
+  return block[0] == K1_TILE_W && block[1] == tile_h && grid[0] >= 1 && grid[1] >= 1 &&
+         grid[0] * K1_TILE_W >= W && (grid[0] - 1) * K1_TILE_W < W && grid[1] * tile_h >= H &&
+         (grid[1] - 1) * tile_h < H;
+}
+
 extern "C" {
 
 int te_fused_update_params_size() { return (int)sizeof(FusedParams); }
-
-// tile width, tile heights (layers, veto), table caps (window, count,
-// candidates, directions, fusion terms)
-void te_fused_update_geometry(int* out) {
-  out[0] = K1_TILE_W;
-  out[1] = K1_TILE_H;
-  out[2] = K1V_TILE_H;
-  out[3] = MAX_WIN;
-  out[4] = MAX_COUNT;
-  out[5] = MAX_CAND;
-  out[6] = MAX_DIRS;
-  out[7] = MAX_FUSE;
-}
 
 const char* te_fused_update_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -574,30 +564,33 @@ int te_fused_update_occupancy(int which, int smem) {
 // compute_roughness) f32; slope_ok, step_ok, roughness_ok (only with
 // check_roughness), traversable_mask uint8 0/1; slope, step, roughness (only
 // with check_roughness) footprint f32. All device pointers; params is a host
-// pointer, passed by value to both kernels. smem_l / smem_v: the launch
-// plan's dynamic shared memory, which must equal this file's counts.
-// Returns the first launch error.
+// pointer, passed by value to both kernels. plan: the launch plan,
+// {layers grid x, y, block x, y, dynamic shared memory, then the same five
+// for the veto kernel}, launched as given once it is checked against this
+// file's tiles and shared-memory counts (cudaErrorInvalidValue where they
+// differ). Returns the first launch error.
 int te_fused_update(const float* elevation, int H, int W, const FusedParams* params,
-                    int smem_l, int smem_v, float* trav, float* slope, float* step, float* rough,
+                    const int* plan, float* trav, float* slope, float* step, float* rough,
                     uint8_t* walk, uint8_t* slope_ok, uint8_t* step_ok, uint8_t* rough_ok,
                     uint8_t* mask, float* slope_fp, float* step_fp, float* rough_fp,
                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const FusedParams& p = *params;
-  if ((size_t)smem_l != smem_layers(p) || (size_t)smem_v != smem_veto(p))
+  const int *lg = plan, *lb = plan + 2, *vg = plan + 5, *vb = plan + 7;
+  const int smem_l = plan[4], smem_v = plan[9];
+  if (!plan_tiles_map(lg, lb, K1_TILE_H, H, W) || !plan_tiles_map(vg, vb, K1V_TILE_H, H, W) ||
+      (size_t)smem_l != smem_layers(p) || (size_t)smem_v != smem_veto(p))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = allow_smem((const void*)fused_layers_kernel, smem_l);
   if (e == cudaSuccess) e = allow_smem((const void*)fused_veto_kernel, smem_v);
   if (e != cudaSuccess) return (int)e;
-  const int gx = (W + K1_TILE_W - 1) / K1_TILE_W;
-  fused_layers_kernel<<<dim3(gx, (H + K1_TILE_H - 1) / K1_TILE_H), dim3(K1_TILE_W, K1_TILE_H),
-                        smem_l, s>>>(p, elevation, H, W, trav, slope, step, rough, walk);
+  fused_layers_kernel<<<dim3(lg[0], lg[1]), dim3(lb[0], lb[1]), smem_l, s>>>(
+      p, elevation, H, W, trav, slope, step, rough, walk);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fused_veto_kernel<<<dim3(gx, (H + K1V_TILE_H - 1) / K1V_TILE_H), dim3(K1_TILE_W, K1V_TILE_H),
-                      smem_v, s>>>(p, elevation, step, slope, rough, walk, H, W,
-                                                slope_ok, step_ok, rough_ok, mask, slope_fp,
-                                                step_fp, rough_fp);
+  fused_veto_kernel<<<dim3(vg[0], vg[1]), dim3(vb[0], vb[1]), smem_v, s>>>(
+      p, elevation, step, slope, rough, walk, H, W, slope_ok, step_ok, rough_ok, mask, slope_fp,
+      step_fp, rough_fp);
   return (int)cudaGetLastError();
 }
 

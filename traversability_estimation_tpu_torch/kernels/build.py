@@ -5,10 +5,7 @@ with a plain C interface, loaded with ``ctypes``. Libraries land in
 ``_build/`` inside the package (git-ignored), named by a hash of the
 source, the flags and the compiler, so an edited source rebuilds and an
 unchanged one loads straight away. Several sources build in parallel, one
-``nvcc`` process each. ``VARIANTS`` are other builds of the same sources
-(another tile geometry, or the one-launch form of kernel 1) that
-``kernels/variants.py`` times against the production kernels; the port
-never loads them.
+``nvcc`` process each.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no ``-use_fast_math`` (the kernels
 rely on IEEE NaN and infinity semantics and correctly rounded division and
@@ -35,24 +32,6 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = {
     "fused_update": "fused_update.cu",
     "circle_field": "circle_field.cu",
-}
-
-# name -> (source, extra nvcc flags)
-VARIANTS = {
-    "circle_field_32x8_cpt2": ("circle_field.cu", ("-DFIELD_TILE_H=8", "-DFIELD_CPT=2")),
-    "circle_field_32x4_cpt2": ("circle_field.cu", ("-DFIELD_TILE_H=4", "-DFIELD_CPT=2")),
-    "circle_field_32x16_cpt4": ("circle_field.cu", ("-DFIELD_TILE_H=16", "-DFIELD_CPT=4")),
-    "circle_field_32x32_cpt4": ("circle_field.cu", ("-DFIELD_TILE_H=32", "-DFIELD_CPT=4")),
-    "circle_field_step_select": ("circle_field.cu", ("-DFIELD_FIRST_FAIL=0",)),
-    "circle_field_step_vote": ("circle_field.cu", ("-DFIELD_FIRST_FAIL=1",)),
-    "fused_update_layers_32x8": ("fused_update.cu", ("-DK1_TILE_H=8",)),
-    "fused_update_veto_32x4": ("fused_update.cu", ("-DK1V_TILE_H=4",)),
-    "fused_update_veto_32x8": ("fused_update.cu", ("-DK1V_TILE_H=8",)),
-    "fused_update_both_32x8": ("fused_update.cu", ("-DK1_TILE_H=8", "-DK1V_TILE_H=8")),
-    "fused_update_one_launch_16": (
-        "variants/fused_update_single_launch.cu", ("-DSL_TILE=16",)),
-    "fused_update_one_launch_32": (
-        "variants/fused_update_single_launch.cu", ("-DSL_TILE=32",)),
 }
 
 NVCC_FLAGS = (
@@ -84,17 +63,9 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def _spec(name: str):
-    if name in SOURCES:
-        return SOURCES[name], ()
-    return VARIANTS[name]
-
-
 def library_path(name: str, nvcc: str) -> Path:
-    source, extra = _spec(name)
-    # a variant source includes a production one: hash every source
-    srcs = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.rglob("*.cu")))
-    h = hashlib.sha256(srcs + "\0".join(NVCC_FLAGS + extra).encode() + nvcc.encode())
+    src = (CSRC_DIR / SOURCES[name]).read_bytes()
+    h = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode() + nvcc.encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -112,8 +83,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        source, extra = _spec(name)
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC_DIR / source)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
         # the child keeps its own descriptor of the log after ours closes
         with open(out.with_suffix(".log"), "w") as log:
             proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)

@@ -28,9 +28,9 @@ from traversability_estimation_tpu_torch.ops import footprint
 from traversability_estimation_tpu_torch.ops.filters import f32, rcp
 from traversability_estimation_tpu_torch.ops.footprint import QueryState
 
-# the kernel's geometry (csrc/circle_field.cu; checked against the library
-# when it loads)
-TILE_W, TILE_H, CELLS_PER_THREAD = 32, 4, 1
+# the kernel's tile, one cell per thread (csrc/circle_field.cu checks every
+# launch plan against its own)
+TILE_W, TILE_H = 32, 4
 FIELD_MAX_OFFS = 4096
 UNROLL = 8
 STRIDES = (64, 128)  # window row strides the kernel is compiled for
@@ -49,11 +49,13 @@ class FieldPlan:
     block: Tuple[int, int]
     smem_bytes: int
 
+    @property
+    def warps(self) -> int:
+        """Warps the launch starts, over all its blocks."""
+        return self.grid[0] * self.grid[1] * -(-self.block[0] * self.block[1] // 32)
 
-def launch_plan(
-    H: int, W: int, reach: int, n_offsets: int,
-    tile_h: int = TILE_H, cells_per_thread: int = CELLS_PER_THREAD,
-) -> FieldPlan:
+
+def launch_plan(H: int, W: int, reach: int, n_offsets: int) -> FieldPlan:
     """Kernel 2's launch for an (H, W) map and a spiral of `n_offsets`
     offsets reaching `reach` cells: the narrowest compiled stride that holds
     a window row (tile width + 2 reach)."""
@@ -71,9 +73,9 @@ def launch_plan(
         reach=reach,
         n_offsets=n_offsets,
         stride=stride,
-        grid=(-(-W // TILE_W), -(-H // tile_h)),
-        block=(TILE_W, tile_h // cells_per_thread),
-        smem_bytes=4 * (n_pad + (tile_h + 2 * reach) * stride),
+        grid=(-(-W // TILE_W), -(-H // TILE_H)),
+        block=(TILE_W, TILE_H),
+        smem_bytes=4 * (n_pad + (TILE_H + 2 * reach) * stride),
     )
 
 
@@ -113,77 +115,24 @@ def device_tables(radius_max: float, resolution: float, H: int, W: int, device: 
 _lib = None
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare kernel 2's C interface on a loaded library."""
-    lib.te_circle_field.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.te_circle_field.restype = ctypes.c_int
-    lib.te_circle_field_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.te_circle_field_geometry.restype = None
-    lib.te_circle_field_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.te_circle_field_occupancy.restype = ctypes.c_int
-    lib.te_circle_field_error_string.argtypes = [ctypes.c_int]
-    lib.te_circle_field_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def geometry(lib: ctypes.CDLL) -> Tuple[int, ...]:
-    """(tile width, tile height, cells per thread, offset cap, strides...)
-    as the library was compiled."""
-    out = (ctypes.c_int * 6)()
-    lib.te_circle_field_geometry(out)
-    return tuple(out)
-
-
-def _library():
+def _library() -> ctypes.CDLL:
+    """Kernel 2's library, built at first use, with its C interface."""
     global _lib
     if _lib is None:
-        lib = bind(build.load("circle_field"))
-        want = (TILE_W, TILE_H, CELLS_PER_THREAD, FIELD_MAX_OFFS, *STRIDES)
-        if geometry(lib) != want:
-            raise RuntimeError(f"circle_field kernel geometry {geometry(lib)} != {want}")
+        lib = build.load("circle_field")
+        lib.te_circle_field.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            *([ctypes.c_int] * 5), ctypes.c_float, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.te_circle_field.restype = ctypes.c_int
+        lib.te_circle_field_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.te_circle_field_occupancy.restype = ctypes.c_int
+        lib.te_circle_field_error_string.argtypes = [ctypes.c_int]
+        lib.te_circle_field_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
-
-
-def launch(
-    lib: ctypes.CDLL,
-    plan: FieldPlan,
-    deltas: torch.Tensor,
-    radii: torch.Tensor,
-    state: QueryState,
-    radius_max: float,
-    radius_min: float,
-    in_map: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of a kernel-2 library with a precomputed plan and tables."""
-    dev = state.device
-    H, W = state.shape
-    trav = state.traversability.to(torch.float32).contiguous()
-    mask = state.traversable_mask.to(torch.bool).contiguous().view(torch.uint8)
-    inm = None
-    if in_map is not None:
-        inm = in_map.to(device=dev, dtype=torch.bool).contiguous().view(torch.uint8)
-    ok = torch.empty((H, W), dtype=torch.bool, device=dev)
-    tv = torch.empty((H, W), dtype=torch.float32, device=dev)
-    span_rcp = rcp(radius_max - radius_min) if radius_min != 0.0 else 0.0
-    with torch.cuda.device(dev):
-        rc = lib.te_circle_field(
-            trav.data_ptr(), mask.data_ptr(), None if inm is None else inm.data_ptr(),
-            H, W, plan.reach, deltas.data_ptr(), radii.data_ptr(), plan.n_offsets,
-            plan.stride, plan.smem_bytes, f32(state.default_traversability), f32(radius_min),
-            span_rcp, int(radius_min == 0.0), ok.data_ptr(), tv.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"dense_circle_field kernel: {lib.te_circle_field_error_string(rc).decode()}"
-        )
-    return ok, tv
 
 
 def dense_circle_field(
@@ -201,19 +150,39 @@ def dense_circle_field(
         raise ValueError(f"dense_circle_field: unsupported device {dev}")
     H, W = state.shape
     plan, deltas, radii = device_tables(radius_max, state.resolution, H, W, dev)
+    ok = torch.empty((H, W), dtype=torch.bool, device=dev)
+    tv = torch.empty((H, W), dtype=torch.float32, device=dev)
     if H * W == 0:
-        return (torch.empty((H, W), dtype=torch.bool, device=dev),
-                torch.empty((H, W), dtype=torch.float32, device=dev))
-    out = launch(_library(), plan, deltas, radii, state, radius_max, radius_min, in_map)
+        return ok, tv
+    trav = state.traversability.to(torch.float32).contiguous()
+    mask = state.traversable_mask.to(torch.bool).contiguous().view(torch.uint8)
+    inm = None
+    if in_map is not None:
+        inm = in_map.to(device=dev, dtype=torch.bool).contiguous().view(torch.uint8)
+    span_rcp = rcp(radius_max - radius_min) if radius_min != 0.0 else 0.0
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.te_circle_field(
+            trav.data_ptr(), mask.data_ptr(), None if inm is None else inm.data_ptr(),
+            H, W, plan.reach, deltas.data_ptr(), radii.data_ptr(), plan.n_offsets,
+            plan.stride, *plan.grid, *plan.block, plan.smem_bytes,
+            f32(state.default_traversability), f32(radius_min), span_rcp,
+            int(radius_min == 0.0), ok.data_ptr(), tv.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"dense_circle_field kernel: {lib.te_circle_field_error_string(rc).decode()}"
+        )
     dense_circle_field.launches += 1
-    return out
+    return ok, tv
 
 
 dense_circle_field.launches = 0
 
 
 def occupancy(plan: FieldPlan) -> int:
-    """Resident blocks per SM of the production kernel for this plan."""
+    """Resident blocks per SM of kernel 2 for this plan."""
     return _library().te_circle_field_occupancy(plan.stride, plan.smem_bytes)
 
 

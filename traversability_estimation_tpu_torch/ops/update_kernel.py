@@ -28,10 +28,11 @@ from traversability_estimation_tpu_torch.ops import filters, veto
 from traversability_estimation_tpu_torch.ops.filters import ChainConfig, f32, rcp
 from traversability_estimation_tpu_torch.ops.veto import VetoConfig
 
-# the kernels' geometry and the capacities of their stencil tables
-# (csrc/fused_update.cu; checked against the library when it loads)
+# the kernels' tiles, one cell per thread, and the capacities of their
+# stencil tables (csrc/fused_update.cu checks every launch plan against its
+# own tiles; the table caps fix the size of FusedParams, checked at load)
 TILE_W = 32
-TILE_H = (4, 16)  # layers kernel, veto kernel
+TILE_H = (8, 16)  # layers kernel, veto kernel
 MAX_WIN, MAX_COUNT, MAX_CAND, MAX_DIRS, MAX_FUSE = 32, 128, 64, 8, 8
 SMEM_LIMIT = 232_448  # dynamic + static shared memory one block may use on an H100
 
@@ -185,17 +186,31 @@ class UpdatePlan:
     static_layers: int = 4 * (4 * MAX_WIN + MAX_DIRS)
     static_veto: int = 4 * (MAX_COUNT + MAX_CAND + MAX_DIRS)
 
+    @property
+    def warps(self) -> Tuple[int, int]:
+        """Warps each launch starts (layers, vetoes), over all its blocks."""
+        return tuple(
+            g[0] * g[1] * -(-b[0] * b[1] // 32)
+            for g, b in ((self.grid_layers, self.block_layers), (self.grid_veto, self.block_veto))
+        )
 
-def launch_plan(
-    params: FusedParams, H: int, W: int, tile_h: Tuple[int, int] = TILE_H
-) -> UpdatePlan:
+    def as_c_ints(self):
+        """The plan as ``te_fused_update`` takes it: per launch (layers,
+        vetoes) grid x, y, block x, y and dynamic shared memory."""
+        return (ctypes.c_int * 10)(
+            *self.grid_layers, *self.block_layers, self.smem_layers,
+            *self.grid_veto, *self.block_veto, self.smem_veto,
+        )
+
+
+def launch_plan(params: FusedParams, H: int, W: int) -> UpdatePlan:
     """Kernel 1's launches for an (H, W) map. The layers kernel holds the
     walk-coded elevation window (tile + halo) and the step-height plane
     (tile + r_sh) in f32; the veto kernel the raw elevation and candidate
     planes (f32) and the zero-flag and ray-bit planes (u8), all over the
     tile + r_mid. Raises where a block would need more shared memory than
     the card has."""
-    th_l, th_v = tile_h
+    th_l, th_v = TILE_H
 
     def plane(reach, th):
         return (TILE_W + 2 * reach) * (th + 2 * reach)
@@ -220,60 +235,42 @@ def launch_plan(
 _lib = None
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare kernel 1's C interface on a loaded library."""
-    ptr = ctypes.c_void_p
-    lib.te_fused_update.argtypes = [
-        ptr, ctypes.c_int, ctypes.c_int, ctypes.POINTER(FusedParams), ctypes.c_int,
-        ctypes.c_int, *([ptr] * 13),
-    ]
-    lib.te_fused_update.restype = ctypes.c_int
-    lib.te_fused_update_params_size.restype = ctypes.c_int
-    lib.te_fused_update_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.te_fused_update_geometry.restype = None
-    lib.te_fused_update_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.te_fused_update_occupancy.restype = ctypes.c_int
-    lib.te_fused_update_error_string.argtypes = [ctypes.c_int]
-    lib.te_fused_update_error_string.restype = ctypes.c_char_p
-    if lib.te_fused_update_params_size() != ctypes.sizeof(FusedParams):
-        raise RuntimeError("FusedParams layout differs between Python and CUDA")
-    return lib
-
-
-def geometry(lib: ctypes.CDLL) -> Tuple[int, ...]:
-    """(tile width, layers and veto tile heights, table caps...) as the
-    library was compiled."""
-    out = (ctypes.c_int * 8)()
-    lib.te_fused_update_geometry(out)
-    return tuple(out)
-
-
-def _library():
+def _library() -> ctypes.CDLL:
+    """Kernel 1's library, built at first use, with its C interface."""
     global _lib
     if _lib is None:
-        lib = bind(build.load("fused_update"))
-        want = (TILE_W, *TILE_H, MAX_WIN, MAX_COUNT, MAX_CAND, MAX_DIRS, MAX_FUSE)
-        if geometry(lib) != want:
-            raise RuntimeError(f"fused_update kernel geometry {geometry(lib)} != {want}")
+        lib = build.load("fused_update")
+        ptr = ctypes.c_void_p
+        lib.te_fused_update.argtypes = [
+            ptr, ctypes.c_int, ctypes.c_int, ctypes.POINTER(FusedParams),
+            ctypes.POINTER(ctypes.c_int), *([ptr] * 13),
+        ]
+        lib.te_fused_update.restype = ctypes.c_int
+        lib.te_fused_update_params_size.restype = ctypes.c_int
+        lib.te_fused_update_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.te_fused_update_occupancy.restype = ctypes.c_int
+        lib.te_fused_update_error_string.argtypes = [ctypes.c_int]
+        lib.te_fused_update_error_string.restype = ctypes.c_char_p
+        if lib.te_fused_update_params_size() != ctypes.sizeof(FusedParams):
+            raise RuntimeError("FusedParams layout differs between Python and CUDA")
         _lib = lib
     return _lib
 
 
-def launch(
-    lib: ctypes.CDLL,
-    elevation: torch.Tensor,
-    chain_cfg: ChainConfig,
-    veto_cfg: VetoConfig,
-    tile_h: Tuple[int, int] = TILE_H,
+def fused_update(
+    elevation: torch.Tensor, chain_cfg: ChainConfig, veto_cfg: VetoConfig
 ) -> Dict[str, torch.Tensor]:
-    """Kernel 1 (two launches) of a library on an (H, W) CUDA elevation
-    plane: every layer of ``fused_update_plain``."""
+    """The map update. CPU tensor: the plain version. CUDA tensor: kernel 1,
+    which writes every layer. ``fused_update.launches`` counts updates that
+    ran kernel 1 (each is two kernel launches: layers, then vetoes)."""
+    if elevation.device.type == "cpu":
+        return fused_update_plain(elevation, chain_cfg, veto_cfg)
     if elevation.device.type != "cuda" or elevation.dim() != 2:
         raise ValueError("fused_update kernel: needs an (H, W) CUDA tensor")
     params = kernel_params(chain_cfg, veto_cfg)
     elev = elevation.to(torch.float32).contiguous()
     H, W = elev.shape
-    plan = launch_plan(params, H, W, tile_h)
+    plan = launch_plan(params, H, W)
     rough = chain_cfg.compute_roughness
     check = veto_cfg.check_roughness
     dev = elev.device
@@ -294,9 +291,10 @@ def launch(
     def ptr(name):
         return out[name].data_ptr() if name in out else None
 
+    lib = _library()
     with torch.cuda.device(dev):
         rc = lib.te_fused_update(
-            elev.data_ptr(), H, W, ctypes.byref(params), plan.smem_layers, plan.smem_veto,
+            elev.data_ptr(), H, W, ctypes.byref(params), plan.as_c_ints(),
             *(ptr(n) for n in ("traversability", "traversability_slope",
                                "traversability_step", "traversability_roughness")),
             walk.data_ptr(),
@@ -306,20 +304,7 @@ def launch(
         )
     if rc != 0:
         raise RuntimeError(f"fused_update kernel: {lib.te_fused_update_error_string(rc).decode()}")
-    return out
-
-
-def fused_update(
-    elevation: torch.Tensor, chain_cfg: ChainConfig, veto_cfg: VetoConfig
-) -> Dict[str, torch.Tensor]:
-    """The map update. CPU tensor: the plain version. CUDA tensor: kernel 1,
-    which writes every layer. ``fused_update.launches`` counts updates that
-    ran kernel 1 (each is two kernel launches: layers, then vetoes)."""
-    if elevation.device.type == "cpu":
-        return fused_update_plain(elevation, chain_cfg, veto_cfg)
-    out = launch(_library(), elevation, chain_cfg, veto_cfg)
-    if elevation.numel():
-        fused_update.launches += 1
+    fused_update.launches += 1
     return out
 
 
@@ -328,7 +313,7 @@ fused_update.launches = 0
 
 def occupancy(plan: UpdatePlan) -> Tuple[int, int]:
     """Resident blocks per SM of the layers and the veto kernel for this
-    plan (production library)."""
+    plan."""
     lib = _library()
     return (lib.te_fused_update_occupancy(0, plan.smem_layers),
             lib.te_fused_update_occupancy(1, plan.smem_veto))
