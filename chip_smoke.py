@@ -22,10 +22,21 @@ Phases (any failure exits non-zero):
    FootprintPaths; both kernels must have launched; path verdicts equal to
    the same run on the CPU, traversability within 1e-6 of it. CUDA-event
    times of each stage and of each plain version;
-5. a 2048^2 map (> 4M cells: the query-crop path) with one path batch;
+5. the polygonal path (config 3 again): update, then the 1024 x 50 paths
+   swept by the 0.9 x 0.6 m footprint polygon through
+   ``check_polygonal_paths_batch`` with identity quaternions, the same with
+   the conservative sweep, and with a random yaw per pose; a non-convex L
+   footprint on 128 of the paths (the per-segment evaluator); a few
+   polygonal FootprintPaths; both dense footprint services. Both kernels
+   must have launched (kernel 2 through ``traversability_footprint_circle``).
+   Bars against the same run on the CPU: is_safe and the dispatch statistics
+   equal, area within rtol 1e-5, traversability within 2e-5, dense layers'
+   ok equal and scores within 1e-5. CUDA-event times of each batch;
+6. a 2048^2 map (> 4M cells: the query-crop path) with one path batch;
    both kernels bit-identical to their plain versions there, and timed;
-6. a ``kernels`` JSON line, the card line, and the contract line
-   ``{"ok": true, "device": {...}}`` last.
+7. a ``kernels`` JSON line (launches summed over the paths of phases 4 and
+   5), the card line, and the contract line ``{"ok": true, "device": {...}}``
+   last.
 """
 
 from __future__ import annotations
@@ -278,7 +289,8 @@ def main() -> None:
 
     # ---- 4. main path, config 3 ------------------------------------------
     P, N, radius = 1024, 50, 0.3
-    poses = make_paths(np.random.default_rng(3), P, N, H * res / 2 * 0.8)
+    rng3 = np.random.default_rng(3)
+    poses = make_paths(rng3, P, N, H * res / 2 * 0.8)
     n_poses = np.full((P,), N, np.int32)
     few = [
         FootprintPath(poses=poses[0, :1], radius=radius),
@@ -346,41 +358,189 @@ def main() -> None:
         f"{k2_call_ms:.4f} ms (plain {k2_plain_ms:.3f} ms, {n_off} offsets); path batch "
         f"{batch_ms:.4f} ms -> {P * N / (batch_ms / 1e3):.4g} pose-checks/s")
 
-    # where one map epoch's time goes: update -> field -> path batch, traced
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def trace(label, fn, reps, top_n):
+        """Where the time of `fn` goes: wall time per call, the device's busy
+        time and idle share, and its kernels by device time."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        if not by_name:
+            log(f"{label} trace: wall {wall_ms:.4f} ms; device time not measured "
+                "(no CUDA events traced)")
+            return
+        busy_ms = sum(us for _, us in by_name.values()) / 1e3 / reps
+        per_call = sum(n for n, _ in by_name.values()) / reps
+        log(f"{label} trace ({card_line}): wall {wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, "
+            f"idle share {1 - busy_ms / wall_ms:.4f}, {per_call:.0f} kernels per call")
+        for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]:
+            log(f"  {us / 1e3 / reps:.4f} ms/call  x{n // reps:<4d} {name[:90]}")
+
     def epoch():
+        """One map epoch: update -> field -> path batch."""
         est.update(terrain)
         est.check_circular_paths_batch(poses, n_poses, radius)
 
-    epoch()
-    torch.cuda.synchronize()
-    n_epochs = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_epochs):
-            epoch()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n_epochs
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    if by_name:
-        busy_ms = sum(us for _, us in by_name.values()) / 1e3 / n_epochs
-        launches_per_epoch = sum(n for n, _ in by_name.values()) / n_epochs
-        log(f"epoch trace ({card_line}): wall {wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, "
-            f"idle share {1 - busy_ms / wall_ms:.4f}, {launches_per_epoch:.0f} kernels per epoch")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-        for name, (n, us) in top:
-            log(f"  {us / 1e3 / n_epochs:.4f} ms/epoch  x{n // n_epochs:<4d} {name[:90]}")
-    else:
-        log(f"epoch trace: wall {wall_ms:.4f} ms; device time not measured "
-            "(no CUDA events traced)")
+    trace("epoch", epoch, 5, 8)
 
-    # ---- 5. large map: the query-crop path --------------------------------
+    # ---- 5. polygonal paths and the dense footprint services, config 3 ----
+    rect = np.asarray(est.config.footprint.footprint_polygon, np.float32)
+    l_shape = np.float32(
+        [[0.45, 0.3], [0.45, -0.3], [-0.45, -0.3], [-0.45, 0.0], [0.0, 0.0], [0.0, 0.3]])
+    pos3 = np.concatenate([poses, np.zeros((P, N, 1), np.float32)], -1)
+    quats_id = np.zeros((P, N, 4), np.float32)
+    quats_id[..., 3] = 1.0
+    yaw = rng3.uniform(0, 2 * np.pi, (P, N)).astype(np.float32)  # bench.py's rotated batch
+    quats_rot = np.zeros((P, N, 4), np.float32)
+    quats_rot[..., 2] = np.sin(yaw / 2)
+    quats_rot[..., 3] = np.cos(yaw / 2)
+    # name -> (batch arguments, expected evaluator, reason, translate_only)
+    poly_batches = {
+        "identity": ((pos3, quats_id, n_poses, rect, False), "grouped", "ok", True),
+        "identity conservative": ((pos3, quats_id, n_poses, rect, True), "grouped", "ok", False),
+        "random yaw": ((pos3, quats_rot, n_poses, rect, False), "grouped", "ok", False),
+        "non-convex L, 128 paths": (
+            (pos3[:128], quats_rot[:128], n_poses[:128], l_shape, False),
+            "per_segment", "non_convex_footprint", False),
+    }
+    few_poly = [
+        FootprintPath(poses=poses[3, :9], footprint=rect),
+        FootprintPath(poses=poses[4], orientations=quats_rot[4], footprint=rect,
+                      conservative=True),
+        FootprintPath(poses=poses[5, :1], footprint=l_shape),
+        FootprintPath(poses=poses[6, :20], orientations=quats_rot[6, :20], footprint=l_shape),
+        FootprintPath(poses=poses[7, :12], radius=radius),
+        FootprintPath(poses=poses[8, :33], orientations=quats_rot[8, :33], footprint=rect),
+    ]
+    dense_layers = ("traversability_x", "traversability_rot", "traversability_footprint")
+
+    def drive_polygonal(e):
+        """The polygonal path through the estimator's entry points: update,
+        the four batches, a few FootprintPaths, both dense services."""
+        e.update(terrain)
+        outs, stats = {}, {}
+        for name, (args, *_) in poly_batches.items():
+            outs[name] = e.check_polygonal_paths_batch(*args)
+            stats[name] = dict(e.last_polygonal_dispatch)
+        few_out = e.check_footprint_path(few_poly)
+        e.traversability_footprint()
+        gmap = e.traversability_footprint_circle()
+        return outs, stats, few_out, {k: gmap[k] for k in dense_layers}
+
+    update_kernel.fused_update.launches = 0
+    field_kernel.dense_circle_field.launches = 0
+    t0 = time.perf_counter()
+    outs, stats, few_out, layers = drive_polygonal(est)
+    torch.cuda.synchronize()
+    poly_wall = time.perf_counter() - t0
+    poly_launches = {
+        "fused_update": update_kernel.fused_update.launches,
+        "circle_field": field_kernel.dense_circle_field.launches,
+    }
+    log(f"polygonal path launches: {poly_launches} (first run {poly_wall:.2f} s wall)")
+    if min(poly_launches.values()) < 1:
+        fail(f"a kernel of the polygonal path did not launch: {poly_launches}")
+    t0 = time.perf_counter()
+    outs_c, stats_c, few_c, layers_c = drive_polygonal(cpu)
+    log(f"polygonal path on the CPU (the referee): {time.perf_counter() - t0:.2f} s wall")
+
+    for name, (args, evaluator, reason, translate_only) in poly_batches.items():
+        st = stats[name]
+        if st != stats_c[name]:
+            fail(f"polygonal {name}: dispatch {st} differs from the CPU run's {stats_c[name]}")
+        if (st["evaluator"], st["reason"], st["translate_only"]) != (
+                evaluator, reason, translate_only):
+            fail(f"polygonal {name}: dispatched as {st}, expected {evaluator}/{reason}")
+        (safe_g, trav_g, area_g), (safe_r, trav_r, area_r) = outs[name], outs_c[name]
+        n_paths = args[0].shape[0]
+        if safe_g.shape != (n_paths,) or not bool(torch.isfinite(trav_g).all()) \
+                or not bool(torch.isfinite(area_g).all()):
+            fail(f"polygonal {name}: wrong shape or non-finite values")
+        if not torch.equal(safe_g.cpu(), safe_r):
+            fail(f"polygonal {name}: is_safe differs from the CPU run on "
+                 f"{(safe_g.cpu() != safe_r).sum().item()} paths")
+        trav_err = float((trav_g.cpu() - trav_r).abs().max())
+        area_err = float(((area_g.cpu() - area_r).abs() - 1e-5 * area_r.abs()).max())
+        if trav_err > 2e-5:
+            fail(f"polygonal {name}: traversability differs from the CPU run by {trav_err:g}")
+        if area_err > 1e-6:
+            fail(f"polygonal {name}: area differs from the CPU run beyond rtol 1e-5 "
+                 f"(excess {area_err:g})")
+        window = st["block_window"] or st["group_window"]
+        log(f"polygonal {name}: {st['evaluator']} ({st['reason']}, translate_only "
+            f"{st['translate_only']}), path window {window}, {int(safe_g.sum())} of "
+            f"{n_paths} safe; vs CPU run: is_safe equal, trav max diff {trav_err:g}, "
+            f"area {float(area_g.min()):.4f} to {float(area_g.max()):.4f} m^2 within rtol 1e-5")
+    for a, b in zip(few_out, few_c):
+        if a.is_safe != b.is_safe or abs(a.traversability - b.traversability) > 2e-5 \
+                or abs(a.area - b.area) > 1e-5 * abs(b.area) + 1e-6:
+            fail(f"polygonal check_footprint_path differs from the CPU run: {a} vs {b}")
+    log("polygonal check_footprint_path vs CPU run: equal, "
+        f"{[(r.is_safe, round(r.traversability, 4), round(r.area, 3)) for r in few_out]}")
+    if est.polygonal_dispatch_counts != cpu.polygonal_dispatch_counts:
+        fail(f"dispatch counts {est.polygonal_dispatch_counts} differ from the CPU run's "
+             f"{cpu.polygonal_dispatch_counts}")
+    for k in dense_layers:
+        got, want = layers[k].cpu(), layers_c[k]
+        if got.shape != (H, W) or not bool(torch.isfinite(got).all()):
+            fail(f"dense layer {k}: wrong shape or non-finite values")
+        if not torch.equal(got != 0, want != 0):
+            fail(f"dense layer {k}: ok differs from the CPU run")
+        err = float((got - want).abs().max())
+        if err > 1e-5:
+            fail(f"dense layer {k}: score differs from the CPU run by {err:g}")
+        log(f"dense layer {k} vs CPU run: ok equal ({int((got != 0).sum())} of {H * W} cells "
+            f"traversable), score max diff {err:g}")
+    ok_g, _ = footprint.dense_polygon_field(est.query_state, rect.astype(np.float64))
+    ok_r, _ = footprint.dense_polygon_field(cpu.query_state, rect.astype(np.float64))
+    if not torch.equal(ok_g.cpu(), ok_r):
+        fail("dense_polygon_field: ok differs from the CPU run")
+
+    poly_ms = {}
+    for name, (args, *_) in poly_batches.items():
+        poly_ms[name] = cuda_ms(lambda: est.check_polygonal_paths_batch(*args), 10)
+    # the hull stage alone: transformed footprints -> one convex ring per segment
+    pos3_dev = torch.as_tensor(pos3, device=dev)
+    rect_dev = torch.as_tensor(rect, device=dev)
+    polys_rot = footprint.transform_footprint(
+        rect_dev, pos3_dev, torch.as_tensor(quats_rot, device=dev))
+    polys_id = footprint.transform_footprint(
+        rect_dev, pos3_dev, torch.as_tensor(quats_id, device=dev))
+    hull_ms = {
+        "random yaw (device hull, 8 points)": cuda_ms(
+            lambda: footprint._segment_rings(polys_rot, pos3_dev, rect_dev, False, False), 10),
+        "identity conservative (device hull, 16 points)": cuda_ms(
+            lambda: footprint._segment_rings(polys_id, pos3_dev, rect_dev, True, False), 5),
+        "identity (swept hull)": cuda_ms(
+            lambda: footprint._segment_rings(polys_id, pos3_dev, rect_dev, False, True), 10),
+    }
+    service_ms = cuda_ms(lambda: est.traversability_footprint(), 3, 1)
+    circle_service_ms = cuda_ms(lambda: est.traversability_footprint_circle(), 20)
+    for name in ("identity", "random yaw"):
+        args = poly_batches[name][0]
+        trace(f"polygonal {name}", lambda: est.check_polygonal_paths_batch(*args), 3, 6)
+    for name, ms in poly_ms.items():
+        n_checks = poly_batches[name][0][0].shape[0] * N
+        log(f"polygonal batch time ({card_line}): {name}: {ms:.4f} ms -> "
+            f"{n_checks / (ms / 1e3):.4g} pose-checks/s")
+    log(f"polygonal hull stage ({card_line}): "
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in hull_ms.items()))
+    log(f"dense services ({card_line}): traversability_footprint (two polygon layers) "
+        f"{service_ms:.3f} ms, traversability_footprint_circle {circle_service_ms:.4f} ms")
+
+    # ---- 6. large map: the query-crop path --------------------------------
     HL = 2048
     big = synthetic_terrain(HL, HL, res, seed=1)
     big_poses = make_paths(np.random.default_rng(4), P, N, HL * res / 2 * 0.8)
@@ -418,7 +578,7 @@ def main() -> None:
         f"kernel 1 {big_k1_ms:.4f} ms, kernel 2 (whole map) {big_k2_ms:.4f} ms, path batch "
         f"(crop, field cached) {big_batch_ms:.4f} ms, {int(safe_b.sum())} of {P} safe")
 
-    # ---- 6. report --------------------------------------------------------
+    # ---- 7. report --------------------------------------------------------
     def bound(nbytes, ops):
         t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -430,12 +590,14 @@ def main() -> None:
         {"name": "fused_update", "route": "cuda",
          "source": "traversability_estimation_tpu_torch/csrc/fused_update.cu",
          "replaces": "traversability_estimation_tpu/ops/pallas_chain.py:117",
-         "launches": launches["fused_update"], "max_abs_err": k1_err, "ms": k1_ms,
+         "launches": launches["fused_update"] + poly_launches["fused_update"],
+         "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": b1, "bound_by": by1, "library_ms": None},
         {"name": "dense_circle_field", "route": "cuda",
          "source": "traversability_estimation_tpu_torch/csrc/circle_field.cu",
          "replaces": "traversability_estimation_tpu/ops/pallas_field.py:125",
-         "launches": launches["circle_field"], "max_abs_err": k2_err, "ms": k2_ms,
+         "launches": launches["circle_field"] + poly_launches["circle_field"],
+         "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": b2, "bound_by": by2, "library_ms": None},
     ]
     log(json.dumps({"kernels": kernels}))

@@ -1,11 +1,13 @@
-"""The port's estimator against the JAX estimator, on the CPU: the update.
+"""The port's estimator against the JAX estimator, on the CPU: the update
+and the check_footprint_path service.
 
 Both get the same configuration (carried over by config_from_fields) and the
 same 96x120 map. Update layers at the chain bars of test_torch_filters.py:
 step, masks and footprint layers exact; slope 5e-5; roughness and
 traversability 2e-4. Path queries on each engine's own update: verdicts
-exact, path traversability within the fused layer's 2e-4. The path
-machinery on one shared map state is in test_torch_paths.py.
+exact, path traversability within the fused layer's 2e-4; on one shared map
+state within 2e-5 (circular paths alone are in test_torch_paths.py, the
+polygonal evaluators in test_torch_polygons.py).
 """
 
 import dataclasses
@@ -13,12 +15,14 @@ import os
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from traversability_estimation_tpu.models.estimator import FootprintPath as JaxPath
 from traversability_estimation_tpu.models.estimator import TraversabilityEstimator as JaxEstimator
+from traversability_estimation_tpu.ops.footprint import QueryState as JaxQueryState
 from traversability_estimation_tpu.utils.config import EstimatorConfig as JaxConfig
 from traversability_estimation_tpu.utils.config import FootprintConfig as JaxFootprint
 from traversability_estimation_tpu_torch import (
@@ -128,14 +132,150 @@ def test_update_is_fused_update_plain_on_cpu(estimators):
         np.testing.assert_array_equal(got.numpy(), v.numpy(), err_msg=k)
 
 
+RECT = np.float32([[0.45, 0.3], [0.45, -0.3], [-0.45, -0.3], [-0.45, 0.3]])
+SQUARE = np.float32([[0.2, 0.2], [0.2, -0.2], [-0.2, -0.2], [-0.2, 0.2]])
+L_SHAPE = np.float32(
+    [[0.4, 0.3], [0.4, -0.3], [-0.4, -0.3], [-0.4, 0.0], [0.0, 0.0], [0.0, 0.3]]
+)
+
+
+def _mixed_paths(cls):
+    """Circular and polygonal paths interleaved: two convex footprints (one
+    also conservative), a non-convex one, ragged pose counts from 1 to 11,
+    with and without orientations, an empty path and one off the map."""
+    rng = np.random.default_rng(8)
+    ext = 96 * RES / 2 * 0.7
+    paths = []
+    for k in range(18):
+        n = int(rng.integers(1, 12))
+        start = np.float32(POSITION) + rng.uniform(-ext, ext, 2)
+        xy = start + np.concatenate([np.zeros((1, 2)), np.cumsum(rng.uniform(-0.06, 0.06, (n - 1, 2)), 0)])
+        yaw = rng.uniform(-np.pi, np.pi, n)
+        quats = np.stack([0 * yaw, 0 * yaw, np.sin(yaw / 2), np.cos(yaw / 2)], -1).astype(np.float32)
+        poses = xy.astype(np.float32)
+        kind = k % 6
+        if kind == 0:
+            paths.append(cls(poses=poses, radius=0.3))
+        elif kind == 1:
+            paths.append(cls(poses=poses, footprint=RECT))  # identity orientation
+        elif kind == 2:
+            paths.append(cls(poses=np.concatenate([poses, np.zeros((n, 1), np.float32)], 1),
+                             orientations=quats, footprint=SQUARE))
+        elif kind == 3:
+            paths.append(cls(poses=poses, orientations=quats, footprint=SQUARE, conservative=True))
+        elif kind == 4:
+            paths.append(cls(poses=poses, orientations=quats, footprint=L_SHAPE))
+        else:
+            paths.append(cls(poses=poses, radius=0.2))
+    paths.append(cls(poses=np.zeros((0, 2), np.float32), footprint=RECT))
+    paths.append(cls(poses=np.float32([[50.0, 50.0]]), footprint=RECT))
+    return paths
+
+
+@pytest.mark.parametrize("state", ["own_updates", "shared_state"])
+def test_mixed_footprint_paths_match_jax(estimators, state):
+    """check_footprint_path with circular and polygonal paths mixed, through
+    both estimators. On each engine's own update the path traversability
+    inherits the fused layer's 2e-4 bar; on one shared map state it holds
+    2e-5. Verdicts, and which evaluator each polygonal group took, are equal
+    either way."""
+    jest, test, elev = estimators
+    jcfg = JaxConfig(resolution=RES, footprint=JaxFootprint(verify_roughness_footprint=True))
+    test = TraversabilityEstimator(test.config, device="cpu")
+    assert test.update(elev, position=POSITION)
+    jest_new = JaxEstimator(jcfg)
+    if state == "own_updates":
+        assert jest_new.update(elev, position=POSITION)
+    else:
+        qs = test.query_state
+        jest_new._query_state = JaxQueryState(
+            traversability=jnp.asarray(qs.traversability.numpy()),
+            traversable_mask=jnp.asarray(qs.traversable_mask.numpy()),
+            position=jnp.asarray(np.float32(POSITION)), resolution=RES,
+            default_traversability=qs.default_traversability,
+        )
+        jest_new._position = np.float32(POSITION)
+        jest_new.initialized = True
+    atol = 2e-4 if state == "own_updates" else 2e-5
+    res_j = jest_new.check_footprint_path(_mixed_paths(JaxPath))
+    res_t = test.check_footprint_path(_mixed_paths(FootprintPath))
+    assert [r.is_safe for r in res_t] == [r.is_safe for r in res_j]
+    np.testing.assert_allclose(
+        [r.traversability for r in res_t], [r.traversability for r in res_j], rtol=0, atol=atol
+    )
+    np.testing.assert_allclose(
+        [r.area for r in res_t], [r.area for r in res_j], rtol=1e-5, atol=1e-6
+    )
+    safe = [r.is_safe for r in res_t]
+    assert any(safe[:18]) and not all(safe[:18])
+    assert res_t[18].is_safe is False and res_t[18].area == 0.0  # no pose
+    assert res_t[19].is_safe is True and res_t[19].traversability == 0.5  # off the map
+    # the last group dispatched is RECT's; the L went to the per-segment evaluator
+    assert test.last_polygonal_dispatch == jest_new.last_polygonal_dispatch
+    assert test.polygonal_dispatch_counts == jest_new.polygonal_dispatch_counts
+    assert test.polygonal_dispatch_counts["batches_non_convex_footprint"] == 1
+    assert test.polygonal_dispatch_counts["paths_per_segment"] == 3
+    assert test.polygonal_dispatch_counts["paths_grouped"] == 10
+
+
+def test_polygonal_batch_dispatch_matches_jax(estimators, monkeypatch):
+    """check_polygonal_paths_batch: the dispatch statistics equal key for
+    key, for the grouped tiers and the per-segment evaluator; a long path
+    past the window cap takes block windows."""
+    from traversability_estimation_tpu.models import estimator as jmod
+    from traversability_estimation_tpu_torch.models import estimator as tmod
+
+    jest, test, _ = estimators
+    rng = np.random.default_rng(9)
+    P, N = 6, 33
+    start = np.float32(POSITION) + rng.uniform(-0.3, 0.3, (P, 1, 2))
+    xy = start + np.concatenate(
+        [np.zeros((P, 1, 2)), np.cumsum(rng.uniform(0.0, 0.06, (P, N - 1, 2)), 1)], 1)
+    pos3 = np.concatenate([xy, np.zeros((P, N, 1))], -1).astype(np.float32)
+    quats = np.zeros((P, N, 4), np.float32)
+    quats[..., 3] = 1.0
+    n_poses = np.full((P,), N, np.int32)
+    cases = [(RECT, False, None), (RECT, True, None), (L_SHAPE, False, None),
+             (RECT, False, 20_000), (RECT, False, 5_000)]
+    seen = set()
+    assert tmod._GROUPED_ELEMS_CAP == jmod._GROUPED_ELEMS_CAP == 32_000_000
+    for fp, conservative, cap in cases:
+        with monkeypatch.context() as patch:
+            if cap is not None:  # a small cap stands in for a long-path batch
+                patch.setattr(jmod, "_GROUPED_ELEMS_CAP", cap)
+                patch.setattr(tmod, "_GROUPED_ELEMS_CAP", cap)
+            out_j = jest.check_polygonal_paths_batch(pos3, quats, n_poses, fp, conservative)
+            out_t = test.check_polygonal_paths_batch(pos3, quats, n_poses, fp, conservative)
+        assert test.last_polygonal_dispatch == jest.last_polygonal_dispatch
+        stats = test.last_polygonal_dispatch
+        seen.add((stats["evaluator"], stats["reason"], stats["block_window"] is not None))
+        np.testing.assert_array_equal(out_t[0].numpy(), np.asarray(out_j[0]))
+        # each engine on its own update: the fused layer's 2e-4 bar
+        np.testing.assert_allclose(out_t[1].numpy(), np.asarray(out_j[1]), rtol=0, atol=2e-4)
+        np.testing.assert_allclose(out_t[2].numpy(), np.asarray(out_j[2]), rtol=1e-5, atol=1e-6)
+    assert seen == {
+        ("grouped", "ok", False), ("grouped", "ok", True),
+        ("per_segment", "non_convex_footprint", False), ("per_segment", "window_cap", False),
+    }
+    assert test.polygonal_dispatch_counts == jest.polygonal_dispatch_counts
+
+
 def test_unported_paths_raise(estimators):
+    """Polygonal paths are served; untraversable polygons, the inclination
+    check and the generic chain still name their ROADMAP items."""
     _, test, _ = estimators
-    square = np.float32([[0.2, 0.2], [0.2, -0.2], [-0.2, -0.2], [-0.2, 0.2]])
-    with pytest.raises(NotImplementedError, match="A9"):
-        test.check_footprint_path(FootprintPath(poses=np.zeros((2, 2)), footprint=square))
+    res = test.check_footprint_path(
+        FootprintPath(poses=np.float32(POSITION) + np.zeros((2, 2), np.float32), footprint=SQUARE)
+    )
+    assert len(res) == 1 and (res[0].area > 0.0 or not res[0].is_safe)
     with pytest.raises(NotImplementedError, match="A16"):
         test.check_footprint_path(
             FootprintPath(poses=np.zeros((2, 2)), radius=0.3, compute_untraversable_polygon=True)
+        )
+    with pytest.raises(NotImplementedError, match="A16"):
+        test.check_footprint_path(
+            FootprintPath(poses=np.zeros((2, 2)), footprint=SQUARE,
+                          compute_untraversable_polygon=True)
         )
     incl = TraversabilityEstimator(
         dataclasses.replace(
@@ -147,6 +287,12 @@ def test_unported_paths_raise(estimators):
     incl.update(np.zeros((40, 40), np.float32))
     with pytest.raises(NotImplementedError, match="A16"):
         incl.check_circular_paths_batch(np.zeros((1, 2, 2), np.float32), np.int32([2]), 0.3)
+    with pytest.raises(NotImplementedError, match="A16"):
+        incl.check_footprint_path(FootprintPath(poses=np.zeros((2, 2)), footprint=SQUARE))
+    identity = np.tile(np.float32([0, 0, 0, 1]), (1, 2, 1))
+    with pytest.raises(NotImplementedError, match="A16"):
+        incl.check_polygonal_paths_batch(
+            np.zeros((1, 2, 3), np.float32), identity, np.int32([2]), SQUARE)
     with pytest.raises(NotImplementedError, match="A11"):
         EstimatorConfig(use_generic_chain=True)
 

@@ -7,13 +7,23 @@ machine with the card, which has no JAX (tests/conftest.py imports it):
 ``chip_smoke.py`` holds the same bars at the main path's shapes. The edge
 shapes (1x1, 5x400, 337x335, 100x133 with 4% holes) test the kernels'
 ragged tiles: every layer must stay bit-identical to the plain version.
+
+The polygonal evaluators are torch ops without a kernel of their own; their
+card cases hold the CUDA estimator to the same estimator on the CPU
+(is_safe and dispatch equal, traversability within 2e-5, area within rtol
+1e-5: only the sums run in another order), and the dense circular service
+must launch kernel 2.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from traversability_estimation_tpu_torch import EstimatorConfig, FootprintConfig
+from traversability_estimation_tpu_torch import (
+    EstimatorConfig,
+    FootprintConfig,
+    TraversabilityEstimator,
+)
 from traversability_estimation_tpu_torch.ops import field_kernel, footprint, update_kernel
 
 pytestmark = pytest.mark.cuda
@@ -30,16 +40,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _terrain(rows, cols, seed, nan_frac):
-    """Rough terrain with slopes, a step edge and NaN holes."""
+def _terrain(rows, cols, seed, nan_frac, noise=0.05, tilt=0.1):
+    """Terrain with slopes, a step edge and NaN holes; rough by default (most
+    cells vetoed), smooth enough to drive over with a small `noise`."""
     rng = np.random.default_rng(seed)
     x = np.arange(rows)[:, None] * RES
     y = np.arange(cols)[None, :] * RES
     z = (
         0.15 * np.sin(2.0 * x) * np.cos(1.5 * y)
-        + 0.05 * rng.standard_normal((rows, cols))
+        + noise * rng.standard_normal((rows, cols))
         + 0.3 * ((x > x.mean()) & (y > y.mean()))
-        + 0.1 * x
+        + tilt * x
     )
     z[rng.random((rows, cols)) < nan_frac] = np.nan
     return z.astype(np.float32)
@@ -106,3 +117,71 @@ def test_circle_field_kernel_edge_shapes(cuda, shape, radius_min):
     rows, cols, seed, nan_frac = shape
     _check_field(torch.as_tensor(_terrain(rows, cols, seed, nan_frac), device=cuda),
                  radius_min, cuda)
+
+
+RECT = np.float32([[0.45, 0.3], [0.45, -0.3], [-0.45, -0.3], [-0.45, 0.3]])
+L_SHAPE = np.float32(
+    [[0.45, 0.3], [0.45, -0.3], [-0.45, -0.3], [-0.45, 0.0], [0.0, 0.0], [0.0, 0.3]]
+)
+
+
+def _estimator_pair(cuda):
+    """The estimator on the card and on the CPU, after the same update."""
+    elev = _terrain(160, 144, seed=3, nan_frac=0.02, noise=0.012, tilt=0.05)
+    pair = []
+    for device in (cuda, "cpu"):
+        est = TraversabilityEstimator(EstimatorConfig(resolution=RES), device=device)
+        assert est.update(elev, position=(0.4, -0.2))
+        pair.append(est)
+    return pair
+
+
+@pytest.mark.parametrize("mode", ["identity", "conservative", "rotated", "non_convex"])
+def test_polygonal_batch_card_matches_cpu(cuda, mode):
+    on_card, on_cpu = _estimator_pair(cuda)
+    rng = np.random.default_rng(12)
+    P, N = 96, 20
+    starts = np.float32([0.4, -0.2]) + rng.uniform(-1.6, 1.6, (P, 2))
+    xy = np.concatenate(
+        [starts[:, None], starts[:, None] + np.cumsum(rng.uniform(-0.06, 0.06, (P, N - 1, 2)), 1)],
+        axis=1,
+    )
+    pos3 = np.concatenate([xy, np.zeros((P, N, 1))], -1).astype(np.float32)
+    quats = np.zeros((P, N, 4), np.float32)
+    quats[..., 3] = 1.0
+    if mode in ("rotated", "non_convex"):
+        yaw = rng.uniform(0, 2 * np.pi, (P, N))
+        quats[..., 2] = np.sin(yaw / 2)
+        quats[..., 3] = np.cos(yaw / 2)
+    n_poses = rng.integers(1, N + 1, P).astype(np.int32)
+    for p in range(P):
+        pos3[p, n_poses[p]:] = pos3[p, n_poses[p] - 1]
+        quats[p, n_poses[p]:] = quats[p, n_poses[p] - 1]
+    footprint_xy = L_SHAPE if mode == "non_convex" else RECT
+    args = (pos3, quats, n_poses, footprint_xy, mode == "conservative")
+    safe_g, trav_g, area_g = on_card.check_polygonal_paths_batch(*args)
+    safe_c, trav_c, area_c = on_cpu.check_polygonal_paths_batch(*args)
+    assert safe_g.is_cuda and on_card.last_polygonal_dispatch == on_cpu.last_polygonal_dispatch
+    want = "per_segment" if mode == "non_convex" else "grouped"
+    assert on_card.last_polygonal_dispatch["evaluator"] == want
+    assert torch.equal(safe_g.cpu(), safe_c) and safe_c.any() and not safe_c.all()
+    torch.testing.assert_close(trav_g.cpu(), trav_c, rtol=0, atol=2e-5)
+    torch.testing.assert_close(area_g.cpu(), area_c, rtol=1e-5, atol=1e-6)
+
+
+def test_footprint_services_card_matches_cpu(cuda):
+    """Both dense services against the CPU run; the circular one launches
+    kernel 2 (no plain field on a CUDA map)."""
+    on_card, on_cpu = _estimator_pair(cuda)
+    before = field_kernel.dense_circle_field.launches
+    on_card.traversability_footprint_circle()
+    assert field_kernel.dense_circle_field.launches == before + 1
+    on_card.traversability_footprint_circle(radius=0.2, offset=0.1)
+    assert field_kernel.dense_circle_field.launches == before + 2
+    on_cpu.traversability_footprint_circle(radius=0.2, offset=0.1)
+    got_map, want_map = on_card.traversability_footprint(), on_cpu.traversability_footprint()
+    for name in ("traversability_footprint", "traversability_x", "traversability_rot"):
+        got, want = got_map[name].cpu(), want_map[name]
+        assert torch.equal(got != 0, want != 0), name
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        assert (want != 0).any() and not (want != 0).all()

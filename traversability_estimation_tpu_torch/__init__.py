@@ -5,6 +5,9 @@ fields, one hand-written CUDA kernel) -> query state -> dense circle field
 (a second hand-written CUDA kernel) -> batched circular path checks (torch
 ops). Every kernel has a plain PyTorch version beside it in the same module;
 the plain version serves CPU tensors and referees the kernel on the card.
+Polygonal footprint paths (convex hulls of consecutive footprints, rasterised
+by the crossing-number rule) and the dense footprint services are torch ops
+behind the same estimator.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -118,3 +118,49 @@ def line_cells_batch(start_idx: torch.Tensor, end_idx: torch.Tensor, max_cells: 
     end_b = end_idx[..., None, :].expand_as(cells)
     cells = torch.where(valid[..., None], cells, end_b)
     return cells, valid, n_real
+
+
+def _ring_edges(vertices: torch.Tensor, n_vertices):
+    """Each vertex with its predecessor in the ring of the first
+    `n_vertices` vertices. vertices (..., V, 2); n_vertices an int or a
+    (...,) tensor. Returns (vi, vj, real): real (..., V) marks the ring's
+    own edges."""
+    V = vertices.shape[-2]
+    idx = torch.arange(V, device=vertices.device)
+    nv = torch.as_tensor(n_vertices, device=vertices.device).to(torch.int64)
+    nv = nv.expand(vertices.shape[:-2])[..., None]
+    jdx = torch.where(idx == 0, nv - 1, idx - 1)  # previous vertex (wraps)
+    vj = torch.gather(vertices, -2, jdx[..., None].expand(vertices.shape))
+    return vertices, vj, idx < nv
+
+
+def polygon_contains(vertices: torch.Tensor, n_vertices, points: torch.Tensor) -> torch.Tensor:
+    """Crossing-number point-in-polygon, grid_map Polygon::isInside parity,
+    batched over leading dims.
+
+    vertices: (..., V, 2), entries past `n_vertices` (an int or (...,)) are
+    masked out; points: (..., K, 2). Returns (..., K) bool.
+    """
+    vi, vj, real = _ring_edges(vertices, n_vertices)
+    px = points[..., :, None, 0]  # (..., K, 1)
+    py = points[..., :, None, 1]
+    xi, yi = vi[..., None, :, 0], vi[..., None, :, 1]  # (..., 1, V)
+    xj, yj = vj[..., None, :, 0], vj[..., None, :, 1]
+    cond = (yi > py) != (yj > py)
+    denom = yj - yi
+    # division-free form of px < (xj-xi)*(py-yi)/denom + xi: both sides times
+    # denom, the comparison flipped for a negative denom (denom == 0 is
+    # excluded by `cond`)
+    lhs = (px - xi) * denom
+    rhs = (xj - xi) * (py - yi)
+    crossing = cond & torch.where(denom > 0.0, lhs < rhs, lhs > rhs) & real[..., None, :]
+    return crossing.sum(dim=-1) % 2 == 1
+
+
+def polygon_area(vertices: torch.Tensor, n_vertices) -> torch.Tensor:
+    """Shoelace area with grid_map Polygon::getArea parity (absolute value),
+    batched over leading dims: vertices (..., V, 2) -> (...)."""
+    vi, vj, real = _ring_edges(vertices, n_vertices)
+    terms = (vj[..., 0] + vi[..., 0]) * (vj[..., 1] - vi[..., 1])
+    terms = torch.where(real, terms, 0.0)
+    return (terms.sum(dim=-1) * 0.5).abs()

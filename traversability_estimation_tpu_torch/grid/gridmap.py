@@ -5,7 +5,7 @@ decreases with the row index and y with the column index."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +24,15 @@ class GridMap:
     @property
     def size(self) -> Tuple[int, int]:
         return tuple(next(iter(self.layers.values())).shape)
+
+    def add_all(self, updates: Mapping[str, torch.Tensor]) -> "GridMap":
+        """A map with the float32 (H, W) layers of `updates` added or
+        replaced; this one stays as it is."""
+        rows, cols = self.size
+        layers = dict(self.layers)
+        for name, arr in updates.items():
+            layers[name] = arr.to(torch.float32).reshape(rows, cols)
+        return dataclasses.replace(self, layers=layers)
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
         return {k: v.detach().cpu().numpy() for k, v in self.layers.items()}
