@@ -34,9 +34,29 @@ Phases (any failure exits non-zero):
    ok equal and scores within 1e-5. CUDA-event times of each batch;
 6. a 2048^2 map (> 4M cells: the query-crop path) with one path batch;
    both kernels bit-identical to their plain versions there, and timed;
-7. a ``kernels`` JSON line (launches summed over the paths of phases 4 and
-   5), the card line, and the contract line ``{"ok": true, "device": {...}}``
-   last.
+7. the online loop (config 4): a 50 m x 50 m map at 0.03 m (1667 x 1667
+   cells, all unknown at first), the robot on a circle of radius 12.5 m, a
+   4 m x 4 m submap (133 x 133 cells) and 256 paths x 10 poses per tick
+   through ``online_tick``. 60 circular ticks (radius 0.3): tick 0 is the
+   unfused first update of the whole map, every later tick must launch
+   kernel 1 (on the 189 x 189 crop) and kernel 2 (on the query crop) once.
+   Bars: the first 6 ticks equal to the same ticks on the CPU (is_safe equal,
+   traversability within 1e-6, elevation and every veto plane exact); the
+   incrementally kept map after tick 59 bit-identical, in every layer, to one
+   full update of the merged elevation on the card; the map state
+   bit-identical to the unfused sequence (update_with_submap + path batch)
+   on a second estimator, whose verdicts agree on at least 98% of a tick's
+   paths, every other path having a pose within 1e-3 cell of a cell border
+   (the query crop's float32 origin may round such a pose into the other
+   cell than the map's own origin does). Then 10 polygonal ticks
+   (the 0.9 x 0.6 m footprint) and 10 roaming ticks (a 20 m window = 667 x
+   667 cells recentred on the robot), on a circle of 5 m that crosses a
+   plateau edge of the terrain (verdicts of both kinds), each held the same
+   way to the unfused sequence and, for 3 ticks, to the CPU. Times per tick, of both kernels at
+   the tick's shapes, and of the tick's copies;
+8. a ``kernels`` JSON line (launches summed over the paths of phases 4, 5
+   and 7), the card line, and the contract line ``{"ok": true, "device":
+   {...}}`` last.
 """
 
 from __future__ import annotations
@@ -91,6 +111,68 @@ def make_paths(rng, P, N, extent, step=0.06):
     return poses
 
 
+def online_ticks(source, n_ticks, map_m=50.0, submap_m=4.0, paths=256, n_poses=10, seed=0):
+    """The online loop's inputs, tick by tick: the robot drives a circle of
+    radius map_m / 4 (``theta = 0.15 * tick``), the source serves a submap
+    centred on it, and the planner asks for `paths` random paths around it.
+    Returns [(patch, centre, poses (P, N, 2), n_poses (P,)), ...]."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for tick in range(n_ticks):
+        theta = 0.15 * tick
+        cx, cy = map_m / 4 * np.cos(theta), map_m / 4 * np.sin(theta)
+        patch, _ = source.sample((cx, cy), (submap_m, submap_m))
+        starts = np.stack(
+            [cx + rng.uniform(-1.5, 1.5, paths), cy + rng.uniform(-1.5, 1.5, paths)], -1)
+        steps = rng.uniform(-0.1, 0.1, (paths, n_poses - 1, 2))
+        poses = np.concatenate(
+            [starts[:, None], starts[:, None] + np.cumsum(steps, 1)], 1).astype(np.float32)
+        out.append((patch, (cx, cy), poses, np.full((paths,), n_poses, np.int32)))
+    return out
+
+
+def drive_online(est, ticks, kind, fused=True, footprint=None, keep_maps=(), clock=None):
+    """Run `ticks` through an estimator: `kind` is "circular" (radius 0.3),
+    "polygonal" (`footprint`, identity orientation) or "roaming" (circular,
+    the window recentred on the robot each tick); `fused` takes
+    ``online_tick``, else the sequence it stands for (recenter +
+    update_with_submap + the path batch). Every tick's verdicts are fetched,
+    as a planner would. Returns ([(safe, trav) on the host per tick], {tick:
+    the traversability map after it, for ticks in `keep_maps`}); `clock`,
+    when given, is called as clock(tick, "start" | "queued" | "fetched")."""
+    outs, maps = [], {}
+    for k, (patch, center, poses, n_poses) in enumerate(ticks):
+        kw = {"footprint": footprint} if kind == "polygonal" else {"radius": 0.3}
+        recenter_to = center if kind == "roaming" else None
+        if clock:
+            clock(k, "start")
+        if fused:
+            out = est.online_tick(patch, center, poses, n_poses, recenter_to=recenter_to, **kw)
+        else:
+            ok = est.recenter(recenter_to) if recenter_to is not None else True
+            ok = est.update_with_submap(patch, center, sync=False) and ok
+            if not ok:
+                out = None
+            elif kind == "polygonal":
+                pos3 = np.concatenate([poses, np.zeros(poses.shape[:2] + (1,), np.float32)], -1)
+                quats = np.zeros(poses.shape[:2] + (4,), np.float32)
+                quats[..., 3] = 1.0
+                out = est.check_polygonal_paths_batch(pos3, quats, n_poses, footprint)[:2]
+            else:
+                out = est.check_circular_paths_batch(poses, n_poses, 0.3)
+        if out is None:
+            raise RuntimeError(f"online tick {k}: the submap did not land on the map")
+        if clock:
+            clock(k, "queued")
+        safe = out[0].cpu()
+        if clock:
+            clock(k, "fetched")
+        outs.append((safe, out[1].cpu()))
+        if k in keep_maps:
+            maps[k] = est.traversability_map
+    return outs, maps
+
+
 def main() -> None:
     import torch
 
@@ -104,10 +186,12 @@ def main() -> None:
             EstimatorConfig,
             FootprintConfig,
             FootprintPath,
+            SyntheticTerrainSource,
             TraversabilityEstimator,
         )
         from traversability_estimation_tpu_torch.kernels import build
         from traversability_estimation_tpu_torch.ops import field_kernel, footprint, update_kernel
+        from traversability_estimation_tpu_torch.ops.veto import required_halo
     except ImportError as e:
         fail(f"the port is not importable here: {e}")
     # the port under test is the one beside this script, never an installed copy
@@ -578,11 +662,285 @@ def main() -> None:
         f"kernel 1 {big_k1_ms:.4f} ms, kernel 2 (whole map) {big_k2_ms:.4f} ms, path batch "
         f"(crop, field cached) {big_batch_ms:.4f} ms, {int(safe_b.sum())} of {P} safe")
 
-    # ---- 7. report --------------------------------------------------------
     def bound(nbytes, ops):
         t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
+    # ---- 7. the online loop, config 4 --------------------------------------
+    MAP_M, SUB_M, WINDOW_M, ON_P, N_TICKS = 50.0, 4.0, 20.0, 256, 60
+    n_map, n_sub, n_win = (int(round(m / res)) for m in (MAP_M, SUB_M, WINDOW_M))
+    halo = required_halo(cfg.chain, cfg.veto)
+    n_crop = n_sub + 4 * halo
+    source = SyntheticTerrainSource(res)
+    t0 = time.perf_counter()
+    ticks = online_ticks(source, N_TICKS + 12, MAP_M, SUB_M, ON_P)
+    log(f"online loop (config 4): map {n_map}x{n_map}, submap {n_sub}x{n_sub}, update crop "
+        f"{n_crop}x{n_crop} (halo {halo}), {ON_P} paths x 10 poses per tick; "
+        f"{len(ticks)} ticks of input made in {time.perf_counter() - t0:.2f} s")
+
+    def blank(n, device=None):
+        e = TraversabilityEstimator(EstimatorConfig(resolution=res), device=device)
+        e.set_elevation_map(np.full((n, n), np.nan, np.float32))
+        return e
+
+    def zero_counts():
+        update_kernel.fused_update.launches = 0
+        field_kernel.dense_circle_field.launches = 0
+
+    def counts():
+        return {"fused_update": update_kernel.fused_update.launches,
+                "circle_field": field_kernel.dense_circle_field.launches}
+
+    def check_maps(got, want, label, float_atol):
+        """Two traversability maps: the same layers; elevation, the step
+        layer and every veto plane bit-identical; the other float layers
+        within `float_atol` (0: bit-identical too), NaN in the same cells."""
+        if set(got.layers) != set(want.layers):
+            fail(f"{label}: layer sets differ: {sorted(got.layers)} vs {sorted(want.layers)}")
+        worst = 0.0
+        for k, w in want.layers.items():
+            g = got[k].to(w.device)
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"{label}: layer {k} is {g.dtype} {tuple(g.shape)}, expected {w.dtype} "
+                     f"{tuple(w.shape)}")
+            loose = float_atol > 0 and k in (
+                "traversability", "traversability_slope", "traversability_roughness")
+            if not loose:
+                if not same(g, w):
+                    fail(f"{label}: layer {k} differs")
+                continue
+            if not torch.equal(torch.isnan(g), torch.isnan(w)):
+                fail(f"{label}: layer {k} has NaN in other cells")
+            err = float((g - w).nan_to_num(0.0).abs().max())
+            worst = max(worst, err)
+            if err > float_atol:
+                fail(f"{label}: layer {k} differs by {err:g} (bar {float_atol:g})")
+        if not torch.equal(got.position.cpu(), want.position.cpu()):
+            fail(f"{label}: map positions differ")
+        return worst
+
+    def check_ticks(got, want, label, trav_atol, share=1.0, on_border=None):
+        """Per-tick verdicts of two runs: on at least `share` of each tick's
+        paths is_safe equal and traversability within `trav_atol`; with
+        `on_border` (a tick's inputs and the map's width in cells), every
+        other path must have a pose within 1e-3 cell of a cell border, where
+        two float32 map origins may round it into different cells."""
+        worst_share, worst_err, n_differ = 1.0, 0.0, 0
+        for k, ((s_g, t_g), (s_w, t_w)) in enumerate(zip(got, want)):
+            if s_g.shape != s_w.shape or not bool(torch.isfinite(t_g).all()):
+                fail(f"{label} tick {k}: wrong shape or non-finite traversability")
+            agree = (s_g == s_w) & ((t_g - t_w).abs() <= trav_atol)
+            n_differ += int((~agree).sum())
+            if on_border is not None and not bool(agree.all()):
+                tick_inputs, n_cells = on_border
+                # the map centre is a whole number of cells from the origin,
+                # so borders lie at n_cells * res / 2 - i * res on both axes
+                frac = ((n_cells * res / 2 - tick_inputs[k][2].astype(np.float64)) / res) % 1.0
+                near = np.minimum(frac, 1.0 - frac).min(axis=(1, 2)) < 1e-3
+                if not near[~agree.numpy()].all():
+                    fail(f"{label} tick {k}: a path differs that has no pose on a cell border")
+            worst_share = min(worst_share, float(agree.float().mean()))
+            if bool(agree.any()):
+                worst_err = max(worst_err, float((t_g - t_w)[agree].abs().max()))
+            if float(agree.float().mean()) < share:
+                fail(f"{label} tick {k}: only {int(agree.sum())} of {len(agree)} paths agree "
+                     f"(is_safe equal, traversability within {trav_atol:g})")
+        return worst_share, worst_err, n_differ
+
+    class TickClock:
+        """Per tick: CUDA events around the tick's queued work, and the
+        host's clock from the call to the fetched verdicts."""
+
+        def __init__(self):
+            self.events, self.wall, self._t = {}, {}, {}
+
+        def __call__(self, k, what):
+            if what == "start":
+                self.events[k] = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                self._t[k] = time.perf_counter()
+                self.events[k][0].record()
+            elif what == "queued":
+                self.events[k][1].record()
+            else:
+                self.wall[k] = (time.perf_counter() - self._t[k]) * 1e3
+
+        def device_ms(self, k):
+            return self.events[k][0].elapsed_time(self.events[k][1])
+
+    # 7a. 60 circular ticks on the card
+    est_on = blank(n_map)
+    clock = TickClock()
+    zero_counts()
+    outs_on, maps_on = drive_online(
+        est_on, ticks[:N_TICKS], "circular", keep_maps=(5, N_TICKS - 1), clock=clock)
+    torch.cuda.synchronize()
+    online_launches = counts()
+    log(f"online loop launches over {N_TICKS} circular ticks: {online_launches} "
+        f"(tick 0 unfused on the whole map, {N_TICKS - 1} fused)")
+    if online_launches != {"fused_update": N_TICKS, "circle_field": N_TICKS}:
+        fail(f"both kernels must launch once per tick: {online_launches} over {N_TICKS} ticks")
+    if est_on._max_cells_hwm <= 0:
+        fail("the fused tick did not run (no sample-count mark)")
+    n_safe = [int(s.sum()) for s, _ in outs_on]
+
+    # 7b. the first 6 ticks on the CPU
+    t0 = time.perf_counter()
+    est_cpu = blank(n_map, "cpu")
+    outs_cpu, maps_cpu = drive_online(est_cpu, ticks[:6], "circular", keep_maps=(5,))
+    cpu_s = time.perf_counter() - t0
+    _, err, _ = check_ticks(outs_on[:6], outs_cpu, "online circular vs CPU", 1e-6)
+    map_err = check_maps(maps_on[5], maps_cpu[5], "online circular vs CPU, map after tick 5", 1e-6)
+    known = int(torch.isfinite(maps_cpu[5]["elevation"]).sum())
+    log(f"online circular vs CPU run, ticks 0-5 ({cpu_s:.1f} s on the CPU): is_safe equal on "
+        f"every path ({sum(n_safe)} of {N_TICKS * ON_P} safe over all ticks), path trav max diff {err:g}; elevation, step "
+        f"layer and veto planes bit-identical over the whole map ({known} known cells), float "
+        f"layers max diff {map_err:g}")
+
+    # 7c. the incrementally kept map against one full update of the merged map
+    est_full = TraversabilityEstimator(EstimatorConfig(resolution=res))
+    est_full.set_elevation_map(est_on._elevation.clone(), est_on._position)
+    est_full.update()
+    check_maps(maps_on[N_TICKS - 1], est_full.traversability_map,
+               f"incremental map after {N_TICKS} ticks vs one full update", 0.0)
+    log(f"incremental map after {N_TICKS} ticks vs one full update of the merged elevation on "
+        f"the card: every layer bit-identical "
+        f"({int(torch.isfinite(est_on._elevation).sum())} known cells)")
+    del est_full
+
+    # 7d. the unfused sequence on a second card estimator
+    est_un = blank(n_map)
+    outs_un, maps_un = drive_online(
+        est_un, ticks[:N_TICKS], "circular", fused=False, keep_maps=(N_TICKS - 1,))
+    share, err, n_differ = check_ticks(outs_on, outs_un, "online circular vs unfused", 1e-6, 0.98,
+                                       on_border=(ticks, n_map))
+    check_maps(maps_on[N_TICKS - 1], maps_un[N_TICKS - 1], "online circular vs unfused, map", 0.0)
+    log(f"online circular vs the unfused sequence, {N_TICKS} ticks: map state bit-identical; "
+        f"{n_differ} of {N_TICKS * ON_P} paths differ (lowest agreeing share of a tick "
+        f"{share:.4f}), trav max diff on the others {err:g}")
+    del est_un, maps_un
+
+    # 7e. polygonal and roaming ticks. Config 4's circle of 12.5 m meets none
+    # of the source's 0.3 m plateaus (every path above is safe); these runs
+    # drive a circle of 5 m, which crosses a plateau's edge, so their verdicts
+    # are of both kinds
+    short = {}
+    n_short = 10
+    near = online_ticks(source, n_short, WINDOW_M, SUB_M, ON_P)
+    for kind, n_cells in (("polygonal", n_map), ("roaming", n_win)):
+        est_k = blank(n_cells)
+        zero_counts()
+        outs_k, maps_k = drive_online(est_k, near, kind, footprint=rect,
+                                      keep_maps=(2, n_short - 1))
+        torch.cuda.synchronize()
+        short[kind] = counts()
+        online_launches = {k: v + short[kind][k] for k, v in online_launches.items()}
+        fused_ran = est_k._pwindow_hwm if kind == "polygonal" else est_k._max_cells_hwm
+        if short[kind]["fused_update"] != n_short or not fused_ran:
+            fail(f"online {kind}: kernel 1 launches {short[kind]} over {n_short} ticks, "
+                 f"fused marks {fused_ran}")
+        if kind == "roaming" and short[kind]["circle_field"] != n_short:
+            fail(f"online roaming: kernel 2 launches {short[kind]} over {n_short} ticks")
+        est_u = blank(n_cells)
+        outs_u, maps_u = drive_online(est_u, near, kind, fused=False, footprint=rect,
+                                      keep_maps=(n_short - 1,))
+        atol = 2e-5 if kind == "polygonal" else 1e-6
+        share, err, n_differ = check_ticks(
+            outs_k, outs_u, f"online {kind} vs unfused", atol, 0.98,
+            on_border=(near, n_cells) if kind == "roaming" else None)
+        check_maps(maps_k[n_short - 1], maps_u[n_short - 1], f"online {kind} vs unfused, map", 0.0)
+        est_c = blank(n_cells, "cpu")
+        outs_c, maps_c = drive_online(est_c, near[:3], kind, footprint=rect, keep_maps=(2,))
+        _, err_c, _ = check_ticks(outs_k[:3], outs_c, f"online {kind} vs CPU", atol)
+        check_maps(maps_k[2], maps_c[2], f"online {kind} vs CPU, map after tick 2", 1e-6)
+        if kind == "roaming" and not np.array_equal(est_k._position, est_u._position):
+            fail("online roaming: positions differ from the unfused sequence")
+        n_safe_k = [int(s.sum()) for s, _ in outs_k]
+        if not 0 < sum(n_safe_k) < n_short * ON_P:
+            fail(f"online {kind}: the verdicts are all alike: {n_safe_k}")
+        log(f"online {kind}, {n_short} ticks on {n_cells}x{n_cells}: launches {short[kind]}; "
+            f"{n_safe_k} of {ON_P} safe; vs the unfused sequence: map "
+            f"state bit-identical, {n_differ} of {n_short * ON_P} paths differ (lowest share "
+            f"{share:.4f}), trav max diff on the others {err:g}; vs CPU run (3 ticks): is_safe "
+            f"equal, trav max diff {err_c:g}"
+            + (f"; window mark {list(est_k._pwindow_hwm.values())}" if kind == "polygonal"
+               else f"; final position {est_k._position.tolist()}"))
+        del est_k, est_u, est_c, maps_k, maps_u, maps_c
+
+    # 7f. times
+    fused_ticks = range(10, N_TICKS)
+    dev_ms = [clock.device_ms(k) for k in fused_ticks]
+    wall_ms = [clock.wall[k] for k in fused_ticks]
+    log(f"online tick times ({card_line}), ticks 10-{N_TICKS - 1}: CUDA events around the "
+        f"tick's queued work mean {np.mean(dev_ms):.4f} ms, max {np.max(dev_ms):.4f} ms; wall "
+        f"to fetched verdicts mean {np.mean(wall_ms):.4f} ms, max {np.max(wall_ms):.4f} ms -> "
+        f"{1e3 / np.mean(wall_ms):.1f} Hz; tick 0 (unfused, whole map) wall "
+        f"{clock.wall[0]:.2f} ms")
+    layers_on = est_on.traversability_map.layers
+    qs_on = est_on.query_state
+    elev_on = est_on._elevation
+    # the shapes are timed where the last tick cut them: the update crop around
+    # its submap, the query crop around the robot (known terrain, not the
+    # unknown cells that fill most of the map)
+    cx, cy = ticks[N_TICKS - 1][1]
+    ci, cj = (v - 2 * halo for v in est_on.traversability_map.index_of(
+        (cx + SUB_M / 2, cy + SUB_M / 2)).tolist())
+    crop_view = elev_on[ci : ci + n_crop, cj : cj + n_crop]
+    crop_dense = crop_view.contiguous()
+    qi, qj = (min(max(c + n_crop // 2 - 128, 0), n_map - 256) for c in (ci, cj))
+    k1_params = update_kernel.kernel_params(cfg.chain, cfg.veto)
+    produced = update_kernel.fused_update(crop_dense, cfg.chain, cfg.veto)
+    cloned = [layers_on[k] for k in produced if k in layers_on] + [elev_on]
+    for hh in (n_crop, n_map):
+        plan_h = update_kernel.launch_plan(k1_params, hh, hh)
+        occ_h = update_kernel.occupancy(plan_h)
+        elev_h = crop_dense if hh == n_crop else elev_on
+        ms_h = device_ms(lambda: update_kernel.fused_update(elev_h, cfg.chain, cfg.veto), 50)
+        b_h, by_h = bound(update_kernel.kernel_bytes(cfg.chain, cfg.veto, hh, hh),
+                          update_kernel.kernel_operations(cfg.chain, cfg.veto, hh, hh))
+        log(f"kernel 1 at {hh}x{hh} ({card_line}): {ms_h:.4f} ms device time, bound {b_h:.4f} ms "
+            f"({by_h}); layers kernel "
+            + launch_line(plan_h.grid_layers, plan_h.block_layers, plan_h.smem_layers, occ_h[0],
+                          plan_h.warps[0])
+            + "; veto kernel "
+            + launch_line(plan_h.grid_veto, plan_h.block_veto, plan_h.smem_veto, occ_h[1],
+                          plan_h.warps[1]))
+    q_shapes = sorted({(256, 256), (n_map, n_map)})
+    for hq, wq in q_shapes:
+        q0 = (qi, qj) if hq == 256 else (0, 0)
+        state_q = footprint.QueryState(
+            traversability=qs_on.traversability[q0[0] : q0[0] + hq, q0[1] : q0[1] + wq].contiguous(),
+            traversable_mask=qs_on.traversable_mask[q0[0] : q0[0] + hq, q0[1] : q0[1] + wq].contiguous(),
+            position=qs_on.position, resolution=res, default_traversability=0.5)
+        plan_q = field_kernel.device_tables(radius + offset, res, hq, wq, dev)[0]
+        ms_q = device_ms(
+            lambda: field_kernel.dense_circle_field(state_q, radius + offset, radius), 50)
+        b_q, by_q = bound(field_kernel.kernel_bytes(hq, wq),
+                          field_kernel.kernel_operations(n_off, hq, wq))
+        log(f"kernel 2 at {hq}x{wq} ({card_line}): {ms_q:.4f} ms device time, bound "
+            f"{b_q:.4f} ms ({by_q}); "
+            + launch_line(plan_q.grid, plan_q.block, plan_q.smem_bytes,
+                          field_kernel.occupancy(plan_q), plan_q.warps))
+    clone_ms = device_ms(lambda: [t.clone() for t in cloned], 50)
+    clone_mb = sum(t.numel() * t.element_size() for t in cloned) / 1e6
+    crop_copy_ms = device_ms(lambda: crop_view.contiguous(), 100)
+    q_view = (qs_on.traversability[qi : qi + 256, qj : qj + 256],
+              qs_on.traversable_mask[qi : qi + 256, qj : qj + 256])
+    q_copy_ms = device_ms(lambda: [v.contiguous() for v in q_view], 100)
+    known_share = float(torch.isfinite(crop_dense).float().mean())
+    log(f"timed at the last tick's crops: update crop at ({ci}, {cj}), {known_share:.3f} of its "
+        f"cells known; query crop at ({qi}, {qj})")
+    log(f"online tick copies ({card_line}): clone of the {len(cloned)} planes a tick replaces "
+        f"({clone_mb:.1f} MB) {clone_ms:.4f} ms; contiguous copy of the {n_crop}x{n_crop} "
+        f"elevation crop {crop_copy_ms:.4f} ms, of the 256x256 query crop (two planes) "
+        f"{q_copy_ms:.4f} ms")
+    traced = iter(ticks[N_TICKS:])
+
+    def one_more_tick():
+        drive_online(est_on, [next(traced)], "circular")
+
+    trace("online tick", one_more_tick, 10, 8)
+
+    # ---- 8. report --------------------------------------------------------
     b1, by1 = bound(update_kernel.kernel_bytes(cfg.chain, cfg.veto, H, W),
                     update_kernel.kernel_operations(cfg.chain, cfg.veto, H, W))
     b2, by2 = bound(field_kernel.kernel_bytes(H, W), field_kernel.kernel_operations(n_off, H, W))
@@ -590,13 +948,15 @@ def main() -> None:
         {"name": "fused_update", "route": "cuda",
          "source": "traversability_estimation_tpu_torch/csrc/fused_update.cu",
          "replaces": "traversability_estimation_tpu/ops/pallas_chain.py:117",
-         "launches": launches["fused_update"] + poly_launches["fused_update"],
+         "launches": launches["fused_update"] + poly_launches["fused_update"]
+         + online_launches["fused_update"],
          "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": b1, "bound_by": by1, "library_ms": None},
         {"name": "dense_circle_field", "route": "cuda",
          "source": "traversability_estimation_tpu_torch/csrc/circle_field.cu",
          "replaces": "traversability_estimation_tpu/ops/pallas_field.py:125",
-         "launches": launches["circle_field"] + poly_launches["circle_field"],
+         "launches": launches["circle_field"] + poly_launches["circle_field"]
+         + online_launches["circle_field"],
          "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": b2, "bound_by": by2, "library_ms": None},
     ]

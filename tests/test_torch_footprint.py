@@ -162,3 +162,52 @@ def test_check_circular_paths_matches_jax(states):
     np.testing.assert_array_equal(safe_t.numpy(), np.asarray(safe_j))
     np.testing.assert_allclose(tv_t.numpy(), np.asarray(tv_j), rtol=0, atol=1e-6)
     assert safe_t.any() and not safe_t.all()
+
+
+# radii sqrt(a^2 + b^2) * res: the rim passes through the centres of the
+# cells (a, b) off the query's own cell
+RIM_CELLS = [(1, 0), (2, 1), (3, 4), (6, 3), (8, 6), (12, 5)]
+
+
+@pytest.mark.parametrize("res,position,shape", [
+    (0.03, (0.0, 0.0), (64, 80)), (0.05, (1.5, -2.25), (61, 77)), (0.03, (0.07, -0.11), (64, 80)),
+])
+def test_rim_on_cell_centres_matches_jax(res, position, shape):
+    """Circles whose rim passes within an ulp of cell centres: query centres
+    at k * res / 2 (cell centres, edges and corners) with radii sqrt(a^2 +
+    b^2) * res, so the outer-ring distance check decides cells by the last
+    bit of the cell-centre coordinate and of the squared distance.
+
+    The plain forms ``p0 - (g + 0.5) * res`` and ``dx*dx + dy*dy`` are an
+    ulp off jitted JAX in a third to a half of the cell coordinates and put
+    rim cells on the other side of the check; the fused multiply-adds
+    XLA:CPU compiles (``fma(-(g + 0.5), res, p0)`` and ``fma(dy, dy,
+    dx*dx)``) agree everywhere. A random traversability plane makes one cell
+    more or less in a circle show in its mean."""
+    rng = np.random.default_rng(1)
+    trav = rng.random(shape).astype(np.float32)
+    trav[rng.random(shape) < 0.03] = np.nan
+    mask = rng.random(shape) > 0.02
+    pos = np.float32(position)
+    jstate = jfp.QueryState(jnp.asarray(trav), jnp.asarray(mask), jnp.asarray(pos), res, 0.5)
+    tstate = query_state_from_numpy(trav, mask, pos, res, 0.5, device="cpu")
+    k = np.stack([rng.integers(-shape[0], shape[0], 1500), rng.integers(-shape[1], shape[1], 1500)], -1)
+    centers = (pos.astype(np.float64) + k * res / 2).astype(np.float32)
+
+    idx = rng.integers(-5, 90, (2000, 2)).astype(np.int32)
+    want = np.asarray(jax.jit(jfp._position_of)(jstate, jnp.asarray(idx)))
+    np.testing.assert_array_equal(tfp._position_of(tstate, torch.from_numpy(idx)).numpy(), want)
+
+    n_ok = n_all = 0
+    for a, b in RIM_CELLS:
+        rmax = float(np.hypot(a, b)) * res
+        for rmin in (0.0, 0.6 * rmax):
+            ok_j, tv_j = jax.jit(lambda s, c: jfp.check_circles(s, c, rmax, rmin))(
+                jstate, jnp.asarray(centers))
+            ok_t, tv_t = tfp.check_circles(tstate, torch.from_numpy(centers), rmax, rmin)
+            np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j), err_msg=f"{a},{b},{rmin}")
+            np.testing.assert_allclose(tv_t.numpy(), np.asarray(tv_j), rtol=0, atol=1e-6,
+                                       err_msg=f"{a},{b},{rmin}")
+            n_ok += int(ok_t.sum())
+            n_all += len(centers)
+    assert 0 < n_ok < n_all

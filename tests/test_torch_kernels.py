@@ -185,3 +185,86 @@ def test_footprint_services_card_matches_cpu(cuda):
         assert torch.equal(got != 0, want != 0), name
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
         assert (want != 0).any() and not (want != 0).all()
+
+
+@pytest.mark.parametrize("side", [189, 317])
+def test_fused_update_kernel_on_a_view_of_a_larger_plane(cuda, side):
+    """The online tick's shapes: the (patch + 4 halo)^2 crop (189 for a 133
+    cell submap, 317 for 261) cut as a strided view out of a larger plane."""
+    plane = torch.as_tensor(_terrain(700, 640, seed=21, nan_frac=0.02, noise=0.012), device=cuda)
+    for i0, j0 in ((0, 0), (133, 71), (700 - side, 640 - side)):
+        view = plane[i0 : i0 + side, j0 : j0 + side]
+        assert not view.is_contiguous()
+        _check_update(view, check_roughness=False)
+    _check_update(plane[11 : 11 + side, 300 : 300 + side], check_roughness=True)
+
+
+@pytest.mark.parametrize("side", [256, 512])
+def test_circle_field_kernel_on_query_crops(cuda, side):
+    """The online tick's query crops (256- and 512-bucketed), cut as views
+    out of a larger map's planes."""
+    cfg = EstimatorConfig(resolution=RES)
+    elev = torch.as_tensor(_terrain(800, 720, seed=22, nan_frac=0.02, noise=0.012), device=cuda)
+    layers = update_kernel.fused_update_plain(elev, cfg.chain, cfg.veto)
+    n_ok = n_cells = 0
+    # the last crop straddles the terrain's step edge (row 400, column 360)
+    for i0, j0 in ((0, 0), (800 - side, 720 - side), (400 - side // 2, 360 - side // 2)):
+        state = footprint.QueryState(
+            traversability=layers["traversability"][i0 : i0 + side, j0 : j0 + side],
+            traversable_mask=layers["traversable_mask"][i0 : i0 + side, j0 : j0 + side],
+            position=torch.zeros(2, device=cuda), resolution=RES,
+        )
+        before = field_kernel.dense_circle_field.launches
+        ok_k, tv_k = field_kernel.dense_circle_field(state, 0.45, 0.3)
+        ok_p, tv_p = footprint.dense_circle_field(state, 0.45, 0.3)
+        assert field_kernel.dense_circle_field.launches == before + 1
+        assert torch.equal(ok_k, ok_p) and _same(tv_k, tv_p)
+        n_ok += int(ok_k.sum())
+        n_cells += ok_k.numel()
+    assert 0 < n_ok < n_cells
+
+
+@pytest.mark.parametrize("mode", ["circular", "roaming", "polygonal"])
+def test_online_tick_card_matches_cpu(cuda, mode):
+    """Four ticks on the card and on the CPU: each fused tick launches
+    kernel 1 once and (circular) kernel 2 once; verdicts equal, path
+    traversability within 1e-6, every map layer bit-identical except the
+    float chain layers, which agree within 1e-6."""
+    from traversability_estimation_tpu_torch import SyntheticTerrainSource
+
+    src = SyntheticTerrainSource(RES)
+    pair = []
+    for device in (cuda, "cpu"):
+        est = TraversabilityEstimator(EstimatorConfig(resolution=RES), device=device)
+        est.set_elevation_map(np.full((400, 400), np.nan, np.float32))
+        pair.append(est)
+    rng = np.random.default_rng(0)
+    for k in range(4):
+        c = (1.5 * np.cos(0.3 * k), 1.5 * np.sin(0.3 * k))
+        patch, _ = src.sample(c, (3.0, 3.0))
+        starts = np.float32(c) + rng.uniform(-1.0, 1.0, (32, 2))
+        poses = np.concatenate(
+            [starts[:, None], starts[:, None] + np.cumsum(rng.uniform(-0.1, 0.1, (32, 7, 2)), 1)],
+            axis=1).astype(np.float32)
+        n = np.full((32,), 8, np.int32)
+        kw = dict(footprint=RECT) if mode == "polygonal" else dict(radius=0.3)
+        if mode == "roaming":
+            kw["recenter_to"] = c
+        k1, k2 = update_kernel.fused_update.launches, field_kernel.dense_circle_field.launches
+        safe_g, trav_g = pair[0].online_tick(patch, c, poses, n, **kw)
+        assert update_kernel.fused_update.launches == k1 + 1
+        fused = k > 0
+        if fused and mode != "polygonal":
+            assert field_kernel.dense_circle_field.launches == k2 + 1
+        safe_c, trav_c = pair[1].online_tick(patch, c, poses, n, **kw)
+        assert safe_g.is_cuda and torch.equal(safe_g.cpu(), safe_c)
+        torch.testing.assert_close(trav_g.cpu(), trav_c, rtol=0, atol=1e-6)
+    assert safe_c.any()
+    for name, want in pair[1].traversability_map.layers.items():
+        got = pair[0].traversability_map[name].cpu()
+        if name in ("traversability", "traversability_slope", "traversability_roughness"):
+            assert torch.equal(torch.isnan(got), torch.isnan(want)), name
+            torch.testing.assert_close(got.nan_to_num(0), want.nan_to_num(0), rtol=0, atol=1e-6)
+        else:
+            assert _same(got, want), name
+    np.testing.assert_array_equal(pair[0]._position, pair[1]._position)

@@ -21,7 +21,10 @@ RES = 0.03
 H100_SMS = 132
 MIN_WARPS_PER_SM = 24  # 6 per scheduler: enough to hide a dependent chain's latency
 SMEM_LIMIT = 232_448
-SHAPES = [(1, 1), (5, 400), (337, 335), (336, 336), (100, 133), (2048, 2048)]
+# the last four are the online tick's: the update crop of a 133- and a
+# 261-cell submap, a query crop, and the whole 50 m map of the first tick
+SHAPES = [(1, 1), (5, 400), (337, 335), (336, 336), (100, 133), (2048, 2048),
+          (189, 189), (317, 317), (256, 256), (1667, 1667)]
 
 
 def _field_plan(H, W, radius_max=0.45):
@@ -63,6 +66,22 @@ def test_plans_fill_the_card_at_336():
     # gives 112,896 / 32 / 132 = 26.7 warps per SM before ragged tiles
     for warps in (_field_plan(336, 336).warps, *_update_plan(336, 336).warps):
         assert warps / H100_SMS >= MIN_WARPS_PER_SM
+
+
+def test_online_tick_crop_is_one_thin_wave():
+    """The 189 x 189 update crop of a 133-cell submap: 6 x 24 blocks of 8
+    warps for the layers kernel, 6 x 12 of 16 for the vetoes, under 9 warps
+    per SM (the map-sized launches give 28 or more)."""
+    from traversability_estimation_tpu_torch.ops.veto import required_halo
+
+    cfg = EstimatorConfig(resolution=RES)
+    side = 133 + 4 * required_halo(cfg.chain, cfg.veto)
+    assert side == 189
+    plan = _update_plan(side, side)
+    assert plan.grid_layers == (6, 24) and plan.grid_veto == (6, 12)
+    assert plan.warps == (6 * 24 * 8, 6 * 12 * 16)
+    assert all(8 < w / H100_SMS < 9 for w in plan.warps)
+    assert _field_plan(256, 256).warps / H100_SMS > 15
 
 
 def test_field_plan_shared_memory_fits():

@@ -70,8 +70,8 @@ def _index_of(state: QueryState, xy: torch.Tensor) -> torch.Tensor:
 
 
 def _position_of(state: QueryState, idx: torch.Tensor) -> torch.Tensor:
-    p0 = _origin_offset(state)
-    return p0 - (idx.to(torch.float32) + 0.5) * state.resolution
+    """Cell-centre positions (..., 2) of integer indices (..., 2)."""
+    return _cell_coord(_origin_offset(state), idx.to(torch.float32), state.resolution)
 
 
 def _is_inside(state: QueryState, xy: torch.Tensor) -> torch.Tensor:
@@ -161,8 +161,11 @@ def check_circles(
 
     # outermost two rings: grid_map re-checks the Euclidean distance to the
     # (sub-cell accurate) query center
+    # (a rim that passes through a cell centre decides that cell by an ulp:
+    # the centre coordinate and the squared distance are the fused
+    # multiply-adds XLA:CPU compiles, ``fma(dy, dy, dx * dx)``)
     diff = _position_of(state, cells) - centers[:, None, :]
-    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+    d2 = fma_f32(diff[..., 1], diff[..., 1], diff[..., 0] * diff[..., 0])
     outer = rings >= max(n_rings - 1, 0)
     within = torch.where(outer, d2 <= radius_max * radius_max, True)
 

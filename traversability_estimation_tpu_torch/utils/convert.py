@@ -1,19 +1,22 @@
 """State carried into the port from plain values.
 
 The engine has no weights; what moves between the JAX package and the port
-is configuration and map state. Both arrive as plain fields (dicts, numpy
-arrays), so this module needs nothing of the JAX package.
+is configuration and map state: a query state, or a whole estimator's state
+in the middle of an online loop. All of it arrives as plain fields (dicts,
+numpy arrays), so this module needs nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 
 from traversability_estimation_tpu_torch.device import DeviceLike, resolve_device
+from traversability_estimation_tpu_torch.grid.gridmap import GridMap
+from traversability_estimation_tpu_torch.models.estimator import TraversabilityEstimator
 from traversability_estimation_tpu_torch.ops.filters import ChainConfig
 from traversability_estimation_tpu_torch.ops.footprint import QueryState
 from traversability_estimation_tpu_torch.utils.config import EstimatorConfig, FootprintConfig
@@ -82,3 +85,41 @@ def query_state_from_numpy(
         resolution=float(resolution),
         default_traversability=float(default),
     )
+
+
+def estimator_from_state(
+    config: EstimatorConfig,
+    elevation: np.ndarray,
+    position,
+    map_layers: Mapping[str, np.ndarray],
+    extra_layers: Optional[Mapping[str, np.ndarray]] = None,
+    traversability_default: Optional[float] = None,
+    initialized: bool = True,
+    device: DeviceLike = None,
+) -> TraversabilityEstimator:
+    """The port's estimator set up in the middle of a loop from another
+    estimator's state as host arrays, without running ``update()``:
+    `elevation` (the persistent plane), `position` (the map centre),
+    `map_layers` (every layer of the traversability map, bool veto planes as
+    bool), `extra_layers`, the current default traversability and the
+    initialised flag. The next ``online_tick`` continues from there."""
+    est = TraversabilityEstimator(config, device=device)
+    est.set_elevation_map(elevation, position, extra_layers)
+    if traversability_default is not None:
+        est.set_default_traversability(traversability_default)
+    if map_layers:
+        layers = {}
+        for name, plane in map_layers.items():
+            # a copy the estimator owns, bool planes kept bool
+            plane = np.array(plane, dtype=bool if np.asarray(plane).dtype == np.bool_ else np.float32)
+            layers[name] = torch.as_tensor(plane, device=est.device)
+        layers["elevation"] = est._elevation
+        est._map = GridMap(
+            layers=layers,
+            resolution=config.chain.resolution,
+            position=est._position_tensor(),
+            frame_id=config.map_frame_id,
+        )
+        est._set_query_state(layers)
+    est.initialized = bool(initialized)
+    return est
