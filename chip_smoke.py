@@ -12,7 +12,12 @@ Phases (any failure exits non-zero):
 2. kernel 1 (fused map update) against its plain torch version on the card:
    the 336^2 terrain and the edge shapes 1x1, 5x400, 337x335 and 100x133
    with 4% NaN holes, with the roughness veto off and on. Bar: every layer
-   bit-identical (NaN equal to NaN);
+   bit-identical (NaN equal to NaN). Then the same shapes under four fusion
+   expressions, which kernel 1 interprets per cell: the reference's
+   ``(1.0 / 3.0) * (slope + step + roughness)``, a two-layer mean with
+   roughness off, one of min, max, sqrt, ``^ 2`` and unary minus (bar:
+   every layer bit-identical), and one of exp, sin and a general power (bar:
+   the fused layer within 2 float32 steps, every other layer bit-identical);
 3. kernel 2 (dense circle field) against its plain version on the card:
    radius pairs (0.45, 0.3) and (0.45, 0.0), with and without an in-map
    plane, on the 336^2 map and the edge shapes. Bar: ok and trav
@@ -54,17 +59,42 @@ Phases (any failure exits non-zero):
    plateau edge of the terrain (verdicts of both kinds), each held the same
    way to the unfused sequence and, for 3 ticks, to the CPU. Times per tick, of both kernels at
    the tick's shapes, and of the tick's copies;
-8. a ``kernels`` JSON line (launches summed over the paths of phases 4, 5
-   and 7), the card line, and the contract line ``{"ok": true, "device":
+8. the serving path, as a user starts it: a ``TraversabilityNode`` on the
+   card under the reference-format configuration (its fusion expression runs
+   inside kernel 1) behind a ``TraversabilityServer`` on 127.0.0.1, driven by
+   a ``TraversabilityClient`` over the socket. Node A keeps config 4's
+   persistent 1667 x 1667 map with the timer off: 20 x
+   (``update_traversability``, then ``check_footprint_path`` with 64 circular
+   paths x 10 poses and 8 polygonal ones, all asking for their untraversable
+   polygon), the first 10 on a 5 m circle that crosses a plateau edge
+   (verdicts of both kinds), the last 10 on config 4's 12.5 m circle; then
+   ``get_traversability`` of a 4 m submap with two layers. Node B holds
+   config 3's 336 x 336 map: ``set_elevation_map``,
+   ``traversability_footprint``, ``save_traversability_map_to_bag``,
+   ``load_elevation_map`` of that bag, ``update_parameters`` (documents that
+   change the fusion expression), ``update_traversability``,
+   ``check_footprint_path``, ``get_traversability``. Bars: every response
+   ok; kernel 1 launched once per update request and kernel 2 once per map
+   epoch with circular paths; against the same requests to nodes on the CPU
+   is_safe and polygons equal, traversability within 1e-6, area within rtol 1e-5, step layers and
+   masks exact, float layers within 1e-6; the saved bag loads back
+   bit-identical in every float layer. Then node A's timer runs at 50 Hz for
+   2 s while four client threads query it: every response ok, no failed
+   tick. Wall times per request kind from the client's side;
+9. a ``kernels`` JSON line (launches summed over the paths of phases 4, 5,
+   7 and 8), the card line, and the contract line ``{"ok": true, "device":
    {...}}`` last.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -109,6 +139,19 @@ def make_paths(rng, P, N, extent, step=0.06):
         [starts[:, None, :], starts[:, None, :] + np.cumsum(steps, axis=1)], axis=1
     ).astype(np.float32)
     return poses
+
+
+# name -> (fusion expression, compute_roughness, float32 steps allowed in the
+# fused layer against the plain version)
+EXPRESSIONS = {
+    "reference": ("(1.0 / 3.0) * (traversability_slope + traversability_step + "
+                  "traversability_roughness)", True, 0),
+    "two layers": ("0.5*(traversability_slope + traversability_step)", False, 0),
+    "min max sqrt ^2 neg": ("max(min(traversability_slope, traversability_step), "
+                            "-sqrt(traversability_roughness) + traversability_step ^ 2)", True, 0),
+    "exp sin pow": ("exp(-traversability_roughness) * sin(traversability_slope) + "
+                    "traversability_step ^ 1.5", True, 2),
+}
 
 
 def online_ticks(source, n_ticks, map_m=50.0, submap_m=4.0, paths=256, n_poses=10, seed=0):
@@ -173,6 +216,256 @@ def drive_online(est, ticks, kind, fused=True, footprint=None, keep_maps=(), clo
     return outs, maps
 
 
+def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
+    """Phase 8: the serving path over a real socket, on the card, held to the
+    same requests against nodes on the CPU (see the module docstring).
+    `zero_counts` / `counts`: the kernels' launch counters. Returns the
+    launches of both kernels over the phase."""
+    import torch
+
+    import traversability_estimation_tpu_torch as port
+    from traversability_estimation_tpu_torch.utils.rosbag import load_grid_map_bag
+
+    MAP_M, N_UPDATES, N_CIRCULAR, N_POLYGONAL = 50.0, 20, 64, 8
+    cfg = dataclasses.replace(
+        port.config_from_documents(**port.reference_documents(), resolution=res),
+        min_update_rate=0.0)
+    if not cfg.chain.fusion_expression or cfg.use_generic_chain:
+        fail("the reference documents must configure the canonical chain with its expression")
+    # the planner's requests: 10 ticks on a 5 m circle (it crosses a plateau
+    # edge of the source), then 10 on config 4's 12.5 m circle
+    ticks = (online_ticks(source, N_UPDATES // 2, 20.0, 4.0, N_CIRCULAR + N_POLYGONAL)
+             + online_ticks(source, N_UPDATES // 2, MAP_M, 4.0, N_CIRCULAR + N_POLYGONAL, seed=1))
+    requests = []
+    for _, center, poses, _ in ticks:
+        paths = [{"poses": p.tolist(), "radius": 0.3, "compute_untraversable_polygon": True}
+                 for p in poses[:N_CIRCULAR]]
+        paths += [{"poses": p.tolist(), "footprint": rect.tolist(),
+                   "compute_untraversable_polygon": True} for p in poses[N_CIRCULAR:]]
+        requests.append((center, paths))
+    two_layers = EXPRESSIONS["two layers"][0]
+    filters = [dict(f) for f in port.reference_documents()["filters"]]
+    filters[4] = {**filters[4], "params": {**filters[4]["params"], "expression": two_layers}}
+    b_paths = [{"poses": p.tolist(), "radius": 0.3, "compute_untraversable_polygon": True}
+               for p in make_paths(np.random.default_rng(8), 32, 10, 336 * res / 2 * 0.8)]
+    walls = {}
+
+    def timed(kind, call, *args, **kw):
+        t0 = time.perf_counter()
+        resp = call(*args, **kw)
+        walls.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+        if not resp.get("ok"):
+            fail(f"serving path: {kind} answered {resp}")
+        return resp
+
+    def drive(device, tmp):
+        """Nodes A and B on `device` behind their servers, every request over
+        the socket. Returns the answers and, per stage, the kernels'
+        launches."""
+        pose = {"xy": (0.0, 0.0)}
+        node_a = port.TraversabilityNode(
+            cfg, source=source, robot_pose=lambda: pose["xy"],
+            persistent_map_length=(MAP_M, MAP_M), device=device)
+        node_b = port.TraversabilityNode(cfg, device=device)
+        out, stages = {"paths": []}, {}
+        record = device != "cpu"
+        with port.TraversabilityServer(node_a) as srv_a, port.TraversabilityServer(node_b) as srv_b, \
+                port.TraversabilityClient(*srv_a.address, timeout=300.0) as cli_a, \
+                port.TraversabilityClient(*srv_b.address, timeout=300.0) as cli_b:
+            call = timed if record else (lambda kind, fn, *a, **kw: fn(*a, **kw))
+            zero_counts()
+            for k, (center, paths) in enumerate(requests):
+                pose["xy"] = center
+                info = call("update_traversability", cli_a.update_traversability)
+                if not info.get("ok") or info["map_info"]["size"] != [1667, 1667]:
+                    fail(f"serving path ({device}): update {k} answered {info}")
+                out["paths"].append(call(
+                    "check_footprint_path (64 circular + 8 polygonal paths x 10 poses)",
+                    cli_a.check_footprint_path, paths))
+            stages["node A, 20 x (update, paths)"] = counts()
+            out["submap"] = call(
+                "get_traversability (4 m submap, 2 layers)", cli_a.get_traversability,
+                layers=["traversability", "traversability_step"], position=requests[-1][0],
+                length=(4.0, 4.0))
+
+            zero_counts()
+            out["push"] = call("set_elevation_map (336 x 336)", cli_b.set_elevation_map, terrain)
+            out["footprint"] = call("traversability_footprint", cli_b.traversability_footprint)
+            bag = os.path.join(tmp, f"{device}.bag")
+            call("save_traversability_map_to_bag", cli_b.save_traversability_map_to_bag, bag)
+            held = node_b.get_traversability_map()
+            saved = load_grid_map_bag(bag).data
+            floats = {k for k, v in held.layers.items() if v.dtype != torch.bool}
+            if set(saved) != floats:
+                fail(f"serving path ({device}): the bag holds {sorted(saved)}, the map's float "
+                     f"layers are {sorted(floats)}")
+            for k, v in saved.items():
+                if not np.array_equal(v, held[k].cpu().numpy(), equal_nan=True):
+                    fail(f"serving path ({device}): layer {k} of the saved bag differs")
+            out["load"] = call("load_elevation_map (the saved bag)", cli_b.load_elevation_map, bag)
+            reloaded = node_b.get_traversability_map()
+            for k in ("elevation", "traversability", "traversable_mask", "step_footprint"):
+                if not np.array_equal(reloaded[k].cpu().numpy(), held[k].cpu().numpy(),
+                                      equal_nan=True):
+                    fail(f"serving path ({device}): layer {k} changed across save and load")
+            call("update_parameters (documents)", cli_b.update_parameters,
+                 documents={"filters": filters})
+            if node_b.config.chain.fusion_expression != two_layers:
+                fail("serving path: update_parameters did not change the fusion expression")
+            call("update_traversability (336 x 336)", cli_b.update_traversability)
+            out["b_paths"] = call("check_footprint_path (32 circular paths, 336 x 336)",
+                                  cli_b.check_footprint_path, b_paths)
+            out["b_map"] = call(
+                "get_traversability (336 x 336, 4 layers)", cli_b.get_traversability,
+                layers=["traversability", "traversability_step", "traversability_slope",
+                        "traversable_mask"])
+            stages["node B"] = counts()
+            lay = out["b_map"]["data"]
+            want = np.float32(0.5) * (lay["traversability_slope"] + lay["traversability_step"])
+            if not np.array_equal(lay["traversability"], want, equal_nan=True):
+                fail(f"serving path ({device}): the map does not follow the new expression")
+
+            if record:
+                # the timer at 50 Hz for 2 s under four querying clients
+                zero_counts()
+                state = {"tick": 0}
+
+                def roaming_pose():
+                    state["tick"] += 1
+                    theta = 0.15 * (N_UPDATES // 2 + state["tick"])
+                    return MAP_M / 4 * np.cos(theta), MAP_M / 4 * np.sin(theta)
+
+                node_a.robot_pose = roaming_pose
+                errors, served = [], []
+
+                def client():
+                    try:
+                        with port.TraversabilityClient(*srv_a.address, timeout=60.0) as cli:
+                            n = 0
+                            while time.perf_counter() < t_end:
+                                resp = cli.check_footprint_path(requests[-1][1])
+                                if not resp.get("ok") or len(resp["results"]) != len(requests[-1][1]):
+                                    errors.append(str(resp)[:200])
+                                n += 1
+                            served.append(n)
+                    except Exception as e:  # noqa: BLE001 - reported by the main thread
+                        errors.append(repr(e))
+
+                node_a.start()
+                base = node_a.update_count
+                call("update_parameters (documents)", cli_a.update_parameters,
+                     documents={"robot": {"min_update_rate": 50.0}})
+                t_start = time.perf_counter()
+                t_end = t_start + 2.0
+                threads = [threading.Thread(target=client, daemon=True) for _ in range(4)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=120.0)
+                elapsed = time.perf_counter() - t_start
+                n_ticks = node_a.update_count - base
+                call("update_parameters (documents)", cli_a.update_parameters,
+                     documents={"robot": {"min_update_rate": 0.0}})
+                node_a.stop()
+                n_all = node_a.update_count - base  # with the ticks that ran while stopping
+                torch.cuda.synchronize()
+                stages["node A, timer on"] = counts()
+                if any(t.is_alive() for t in threads) or node_a._timer is not None:
+                    fail("serving path: a client thread or the timer did not stop")
+                if errors or len(served) != 4 or node_a.total_failures:
+                    fail(f"serving path under load: errors {errors[:2]}, served {served}, "
+                         f"{node_a.total_failures} failed ticks")
+                if stages["node A, timer on"]["fused_update"] != n_all or n_ticks < 10:
+                    fail(f"serving path under load: {n_ticks} ticks, launches "
+                         f"{stages['node A, timer on']}")
+                log(f"serving path under load ({card_line}): timer at 50 Hz for {elapsed:.2f} s "
+                    f"with 4 client threads: {n_ticks} ticks = {n_ticks / elapsed:.1f} Hz, "
+                    f"{sum(served)} check_footprint_path requests of 72 paths answered "
+                    f"({sum(served) / elapsed:.1f} /s), launches {stages['node A, timer on']}")
+        return out, stages
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        got, stages = drive("cuda", tmp)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want, _ = drive("cpu", tmp)
+        cpu_s = time.perf_counter() - t0
+
+    a_counts = stages["node A, 20 x (update, paths)"]
+    if a_counts != {"fused_update": N_UPDATES, "circle_field": N_UPDATES}:
+        fail(f"serving path: kernel 1 must launch once per update request and kernel 2 once "
+             f"per map epoch: {a_counts} over {N_UPDATES} updates")
+    # node B: the pushed map, the loaded bag and the update after the reload;
+    # one circle field for the path request
+    if stages["node B"] != {"fused_update": 3, "circle_field": 1}:
+        fail(f"serving path: node B launched {stages['node B']}, expected 3 updates and 1 field")
+
+    def compare_paths(got_resp, want_resp, label):
+        err, n_safe, n_poly = 0.0, 0, 0
+        for g, w in zip(got_resp["results"], want_resp["results"], strict=True):
+            if g["is_safe"] != w["is_safe"]:
+                fail(f"serving path {label}: is_safe differs from the CPU node")
+            if g.get("untraversable_polygon") != w.get("untraversable_polygon"):
+                fail(f"serving path {label}: an untraversable polygon differs from the CPU node")
+            if abs(g["area"] - w["area"]) > 1e-5 * abs(w["area"]) + 1e-6:
+                fail(f"serving path {label}: area {g['area']} vs {w['area']}")
+            err = max(err, abs(g["traversability"] - w["traversability"]))
+            n_safe += g["is_safe"]
+            n_poly += "untraversable_polygon" in g
+        if err > 1e-6:
+            fail(f"serving path {label}: traversability differs from the CPU node by {err:g}")
+        return err, n_safe, n_poly
+
+    def compare_planes(got_resp, want_resp, label):
+        if got_resp["map_info"] != want_resp["map_info"]:
+            fail(f"serving path {label}: map info {got_resp['map_info']} vs {want_resp['map_info']}")
+        worst = 0.0
+        for k, w in want_resp["data"].items():
+            g = got_resp["data"][k]
+            if k in ("traversability_step", "traversable_mask"):
+                if not np.array_equal(g, w, equal_nan=True):
+                    fail(f"serving path {label}: layer {k} differs from the CPU node")
+            else:
+                if not np.array_equal(np.isnan(g), np.isnan(w)):
+                    fail(f"serving path {label}: layer {k} has NaN in other cells")
+                worst = max(worst, float(np.nanmax(np.abs(g - w))) if np.isfinite(w).any() else 0.0)
+        if worst > 1e-6:
+            fail(f"serving path {label}: a float layer differs from the CPU node by {worst:g}")
+        return worst
+
+    err, n_safe, n_poly, n_paths = 0.0, 0, 0, 0
+    all_safe = []
+    for k, (g, w) in enumerate(zip(got["paths"], want["paths"], strict=True)):
+        e, s_k, p_k = compare_paths(g, w, f"tick {k}")
+        err, n_safe, n_poly = max(err, e), n_safe + s_k, n_poly + p_k
+        n_paths += len(w["results"])
+        all_safe.append(s_k)
+    if not (0 < n_safe < n_paths and n_poly > 0):
+        fail(f"serving path: the verdicts are all alike ({n_safe} of {n_paths} safe, "
+             f"{n_poly} polygons)")
+    err_b, safe_b, poly_b = compare_paths(got["b_paths"], want["b_paths"], "node B")
+    sub_err = compare_planes(got["submap"], want["submap"], "submap")
+    map_err = compare_planes(got["b_map"], want["b_map"], "node B map")
+    for name in ("push", "footprint", "load"):
+        if got[name] != want[name]:
+            fail(f"serving path: {name} answered {got[name]}, the CPU node {want[name]}")
+    sub_known = int(np.isfinite(got["submap"]["data"]["traversability"]).sum())
+    log(f"serving path vs nodes on the CPU ({card_s:.1f} s on the card, {cpu_s:.1f} s on the "
+        f"CPU): node A launches {a_counts} over {N_UPDATES} update requests; safe paths per "
+        f"tick {all_safe} of {N_CIRCULAR + N_POLYGONAL}; all {N_UPDATES} ticks: is_safe "
+        f"and {n_poly} untraversable polygons equal on {n_paths} paths ({n_safe} safe), path "
+        f"trav max diff {err:g}; submap {got['submap']['map_info']['size']} ({sub_known} known "
+        f"cells): step layer exact, traversability max diff {sub_err:g}; node B (336 x 336): "
+        f"launches {stages['node B']}, {safe_b} of {len(b_paths)} paths safe, {poly_b} polygons "
+        f"equal, trav max diff {err_b:g}, step layer and mask exact, float layers max diff "
+        f"{map_err:g}; the saved bag loads back bit-identical")
+    for kind, ms in walls.items():
+        log(f"serving request ({card_line}): {kind}: {len(ms)} x, wall median "
+            f"{np.median(ms):.3f} ms, max {np.max(ms):.3f} ms")
+    return {k: sum(st[k] for st in stages.values()) for k in ("fused_update", "circle_field")}
+
+
 def main() -> None:
     import torch
 
@@ -183,6 +476,7 @@ def main() -> None:
     try:
         import traversability_estimation_tpu_torch as port
         from traversability_estimation_tpu_torch import (
+            ChainConfig,
             EstimatorConfig,
             FootprintConfig,
             FootprintPath,
@@ -200,6 +494,8 @@ def main() -> None:
     if any(m == "jax" or m.startswith(("jax.", "traversability_estimation_tpu."))
            or m == "traversability_estimation_tpu" for m in sys.modules):
         fail("the port imported jax or the JAX package")
+    if "yaml" in sys.modules:
+        fail("the port imported yaml: it must run where PyYAML is absent")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -298,15 +594,28 @@ def main() -> None:
             return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
         return bool(torch.equal(a, b))
 
-    def check_update(got, ref, label):
+    fused_steps = [0]  # the most float32 steps a fused layer was off its plain version
+
+    def check_update(got, ref, label, ulps=0):
         """Kernel 1's layers against the plain version's: every layer
-        bit-identical. Returns the largest float difference (0)."""
+        bit-identical; with `ulps`, the fused layer within that many float32
+        steps instead. Returns the largest float difference."""
         torch.cuda.synchronize()
         if set(got) != set(ref):
             fail(f"kernel 1 layer set {sorted(got)} != plain {sorted(ref)}")
         err = 0.0
         for k in ref:
-            if got[k].dtype != ref[k].dtype or not same(got[k], ref[k]):
+            if ulps and k == "traversability" and got[k].dtype == ref[k].dtype:
+                fin = torch.isfinite(ref[k])
+                if not torch.equal(torch.isnan(got[k]), torch.isnan(ref[k])):
+                    fail(f"kernel 1 {label}: {k} has NaN in other cells than the plain version")
+                steps = int((got[k][fin].view(torch.int32)
+                             - ref[k][fin].view(torch.int32)).abs().max()) if bool(fin.any()) else 0
+                fused_steps[0] = max(fused_steps[0], steps)
+                if steps > ulps:
+                    fail(f"kernel 1 {label}: {k} is {steps} float32 steps off the plain version "
+                         f"(bar {ulps})")
+            elif got[k].dtype != ref[k].dtype or not same(got[k], ref[k]):
                 fail(f"kernel 1 {label}: {k} differs from the plain version")
             if ref[k].is_floating_point() and ref[k].numel():
                 fin = torch.isfinite(ref[k])
@@ -358,6 +667,40 @@ def main() -> None:
             ref = update_kernel.fused_update_plain(elev, rcfg.chain, rcfg.veto)
             k1_err = max(k1_err, check_update(got, ref, f"{label} roughness={check_roughness}"))
         log(f"kernel 1 parity {label}, roughness veto off and on: bit-identical")
+    expr_cfgs = {
+        name: EstimatorConfig(resolution=res, chain=ChainConfig(
+            resolution=res, fusion_expression=expression, compute_roughness=rough))
+        for name, (expression, rough, _) in EXPRESSIONS.items()
+    }
+    for name, ecfg in expr_cfgs.items():
+        ulps = EXPRESSIONS[name][2]
+        n_prog = update_kernel.kernel_params(ecfg.chain, ecfg.veto).n_prog
+        fused_steps[0] = 0
+        before = update_kernel.fused_update.launches
+        for label, elev_np in shapes.items():
+            elev = torch.as_tensor(elev_np, device=dev)
+            got = update_kernel.fused_update(elev, ecfg.chain, ecfg.veto)
+            ref = update_kernel.fused_update_plain(elev, ecfg.chain, ecfg.veto)
+            err = check_update(got, ref, f"{label} expression {name!r}", ulps)
+            k1_err = max(k1_err, err)
+        if update_kernel.fused_update.launches != before + len(shapes):
+            fail(f"expression {name!r}: kernel 1 did not launch once per update")
+        log(f"kernel 1 parity, fusion expression {name!r} ({n_prog} program entries), "
+            f"{len(shapes)} shapes: "
+            + ("every layer bit-identical" if not ulps else
+               f"fused layer within {fused_steps[0]} float32 steps (bar {ulps}, largest "
+               f"difference {err:g} at the last shape), the other layers bit-identical"))
+    for bad, what in (("+".join(["traversability_slope"] * 40), "program entries"),
+                      ("traversability_slope+(1+(2+(3+(4+(5+(6+(7+(8+9))))))))", "stack")):
+        try:
+            update_kernel.fused_update(
+                torch.as_tensor(terrain, device=dev),
+                ChainConfig(resolution=res, fusion_expression=bad), cfg.veto)
+        except ValueError as e:
+            if what not in str(e):
+                fail(f"an expression over the kernel's cap raised {e!r}, expected {what!r}")
+        else:
+            fail(f"an expression over the kernel's {what} cap did not raise")
 
     # ---- 3. kernel 2 vs plain --------------------------------------------
     k2_err = 0.0
@@ -428,6 +771,17 @@ def main() -> None:
     update_ms = cuda_ms(lambda: est.update(), 50)
     k1_plain_ms = cuda_ms(
         lambda: update_kernel.fused_update_plain(elev_dev, cfg.chain, cfg.veto), 5)
+    # the same update under each fusion expression, in turns with the weighted
+    # sum (sum, expressions, sum)
+    ref_cfg = expr_cfgs["reference"]
+    k1_expr_ms = {
+        name: device_ms(lambda: update_kernel.fused_update(elev_dev, c.chain, c.veto), 100)
+        for name, c in expr_cfgs.items()
+    }
+    k1_ms_again = device_ms(lambda: update_kernel.fused_update(elev_dev, cfg.chain, cfg.veto), 100)
+    log(f"kernel 1 at {H}x{W} by fusion ({card_line}): weighted sum {k1_ms:.4f} ms and "
+        f"{k1_ms_again:.4f} ms; "
+        + "; ".join(f"{name} {ms:.4f} ms" for name, ms in k1_expr_ms.items()))
     def field_call():
         return field_kernel.dense_circle_field(qs, radius + offset, radius)
 
@@ -895,10 +1249,17 @@ def main() -> None:
         occ_h = update_kernel.occupancy(plan_h)
         elev_h = crop_dense if hh == n_crop else elev_on
         ms_h = device_ms(lambda: update_kernel.fused_update(elev_h, cfg.chain, cfg.veto), 50)
+        ms_e = device_ms(
+            lambda: update_kernel.fused_update(elev_h, ref_cfg.chain, ref_cfg.veto), 50)
         b_h, by_h = bound(update_kernel.kernel_bytes(cfg.chain, cfg.veto, hh, hh),
                           update_kernel.kernel_operations(cfg.chain, cfg.veto, hh, hh))
+        b_e, by_e = bound(update_kernel.kernel_bytes(ref_cfg.chain, ref_cfg.veto, hh, hh),
+                          update_kernel.kernel_operations(ref_cfg.chain, ref_cfg.veto, hh, hh))
+        if hh == n_crop:
+            crop_expr = (ms_h, ms_e, b_e)
         log(f"kernel 1 at {hh}x{hh} ({card_line}): {ms_h:.4f} ms device time, bound {b_h:.4f} ms "
-            f"({by_h}); layers kernel "
+            f"({by_h}); with the reference fusion expression {ms_e:.4f} ms, bound {b_e:.4f} ms "
+            f"({by_e}); layers kernel "
             + launch_line(plan_h.grid_layers, plan_h.block_layers, plan_h.smem_layers, occ_h[0],
                           plan_h.warps[0])
             + "; veto kernel "
@@ -940,7 +1301,13 @@ def main() -> None:
 
     trace("online tick", one_more_tick, 10, 8)
 
-    # ---- 8. report --------------------------------------------------------
+    # ---- 8. the serving path ----------------------------------------------
+    serve_launches = serving_phase(
+        card_line, res, terrain, rect, source, zero_counts, counts)
+
+    # ---- 9. report --------------------------------------------------------
+    b1e, _ = bound(update_kernel.kernel_bytes(ref_cfg.chain, ref_cfg.veto, H, W),
+                   update_kernel.kernel_operations(ref_cfg.chain, ref_cfg.veto, H, W))
     b1, by1 = bound(update_kernel.kernel_bytes(cfg.chain, cfg.veto, H, W),
                     update_kernel.kernel_operations(cfg.chain, cfg.veto, H, W))
     b2, by2 = bound(field_kernel.kernel_bytes(H, W), field_kernel.kernel_operations(n_off, H, W))
@@ -949,14 +1316,19 @@ def main() -> None:
          "source": "traversability_estimation_tpu_torch/csrc/fused_update.cu",
          "replaces": "traversability_estimation_tpu/ops/pallas_chain.py:117",
          "launches": launches["fused_update"] + poly_launches["fused_update"]
-         + online_launches["fused_update"],
+         + online_launches["fused_update"] + serve_launches["fused_update"],
          "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain_ms, "bound_ms": b1, "bound_by": by1, "library_ms": None},
+         "plain_ms": k1_plain_ms, "bound_ms": b1, "bound_by": by1, "library_ms": None,
+         # the same kernel under the reference fusion expression, at 336^2 and
+         # at the online tick's 189^2 crop (beside its weighted-sum time there)
+         "expression_ms": k1_expr_ms["reference"], "expression_bound_ms": b1e,
+         "crop_ms": crop_expr[0], "crop_expression_ms": crop_expr[1],
+         "crop_expression_bound_ms": crop_expr[2]},
         {"name": "dense_circle_field", "route": "cuda",
          "source": "traversability_estimation_tpu_torch/csrc/circle_field.cu",
          "replaces": "traversability_estimation_tpu/ops/pallas_field.py:125",
          "launches": launches["circle_field"] + poly_launches["circle_field"]
-         + online_launches["circle_field"],
+         + online_launches["circle_field"] + serve_launches["circle_field"],
          "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": b2, "bound_by": by2, "library_ms": None},
     ]

@@ -147,6 +147,45 @@ def test_sqrt_f32_is_correctly_rounded():
     np.testing.assert_array_equal(got, want)
 
 
-def test_fusion_expression_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A11"):
-        tf.ChainConfig(resolution=RES, fusion_expression="traversability_slope")
+EXPRESSIONS = {
+    # the reference's MathExpressionFilter
+    "reference": ("(1.0 / 3.0) * (traversability_slope + traversability_step + "
+                  "traversability_roughness)", True),
+    "two_layers": ("0.5*(traversability_slope + traversability_step)", False),
+    "min_max_sqrt_pow": ("max(min(traversability_slope, traversability_step), "
+                         "-sqrt(traversability_roughness) + traversability_step ^ 2)", True),
+    "exp_sin": ("exp(-traversability_roughness) * sin(traversability_slope) + "
+                "traversability_step ^ 1.5", True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXPRESSIONS))
+def test_run_chain_with_fusion_expression_matches_jax(elevation, name):
+    """The chain with a fusion expression against the jitted JAX chain: the
+    layers at the chain's bars, the fused layer within 2e-4 (it inherits the
+    roughness layer's), and exactly the expression of the port's own
+    layers."""
+    expression, rough = EXPRESSIONS[name]
+    kw = dict(resolution=RES, fusion_expression=expression, compute_roughness=rough)
+    ref = jf.run_chain_jit(jnp.asarray(elevation), jf.ChainConfig(**kw))
+    out = tf.run_chain(torch.from_numpy(elevation.copy()), tf.ChainConfig(**kw))
+    assert set(out) == set(ref) and out["traversability"].dtype == torch.float32
+    np.testing.assert_array_equal(
+        out["traversability_step"].numpy(), np.asarray(ref["traversability_step"])
+    )
+    _assert_layer(ref["traversability"], out["traversability"].numpy(), 2e-4, "traversability")
+    from traversability_estimation_tpu_torch.ops import expr
+
+    layers = {k: v for k, v in out.items() if k != "traversability"}
+    again = expr.evaluate(expr.parse(expression), layers)
+    np.testing.assert_array_equal(out["traversability"].numpy(), again.numpy())
+
+
+def test_reference_expression_equals_the_weighted_sum_within_an_ulp(elevation):
+    """(1/3) * (a + b + c) against a/3 + b/3 + c/3: the same layer up to the
+    order of the roundings."""
+    expression, _ = EXPRESSIONS["reference"]
+    elev = torch.from_numpy(elevation.copy())
+    fused = tf.run_chain(elev, tf.ChainConfig(resolution=RES, fusion_expression=expression))
+    summed = tf.run_chain(elev, tf.ChainConfig(resolution=RES))
+    _assert_layer(summed["traversability"].numpy(), fused["traversability"].numpy(), 2e-7, "fused")

@@ -25,6 +25,7 @@ from traversability_estimation_tpu_torch import (
     TraversabilityEstimator,
 )
 from traversability_estimation_tpu_torch.ops import field_kernel, footprint, update_kernel
+from traversability_estimation_tpu_torch.ops.filters import ChainConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -62,9 +63,13 @@ def _same(a, b):
     return bool(torch.equal(a, b))
 
 
-def _check_update(elev, check_roughness):
+def _check_update(elev, check_roughness, ulps=0, **chain_kw):
+    """Kernel 1 against the plain version: one launch, every layer
+    bit-identical; with `ulps`, the fused layer within that many float32
+    steps instead."""
     cfg = EstimatorConfig(
-        resolution=RES, footprint=FootprintConfig(verify_roughness_footprint=check_roughness)
+        resolution=RES, chain=ChainConfig(resolution=RES, **chain_kw),
+        footprint=FootprintConfig(verify_roughness_footprint=check_roughness),
     )
     before = update_kernel.fused_update.launches
     got = update_kernel.fused_update(elev, cfg.chain, cfg.veto)
@@ -72,7 +77,14 @@ def _check_update(elev, check_roughness):
     assert update_kernel.fused_update.launches == before + 1
     assert set(got) == set(want)
     for k in want:
-        assert got[k].dtype == want[k].dtype and _same(got[k], want[k]), k
+        assert got[k].dtype == want[k].dtype, k
+        if ulps and k == "traversability":
+            assert torch.equal(torch.isnan(got[k]), torch.isnan(want[k]))
+            fin = torch.isfinite(want[k])
+            steps = (got[k][fin].view(torch.int32) - want[k][fin].view(torch.int32)).abs()
+            assert int(steps.max()) <= ulps, int(steps.max())
+        else:
+            assert _same(got[k], want[k]), k
 
 
 def _check_field(elev, radius_min, cuda):
@@ -103,6 +115,43 @@ def test_fused_update_kernel_edge_shapes(cuda, shape, check_roughness):
     rows, cols, seed, nan_frac = shape
     _check_update(torch.as_tensor(_terrain(rows, cols, seed, nan_frac), device=cuda),
                   check_roughness)
+
+
+# name -> (expression, compute_roughness, float32 steps allowed in the fused layer)
+EXPRESSIONS = {
+    "reference": ("(1.0 / 3.0) * (traversability_slope + traversability_step + "
+                  "traversability_roughness)", True, 0),
+    "two_layers": ("0.5*(traversability_slope + traversability_step)", False, 0),
+    "min_max_sqrt_pow": ("max(min(traversability_slope, traversability_step), "
+                         "-sqrt(traversability_roughness) + traversability_step ^ 2)", True, 0),
+    "exp_sin": ("exp(-traversability_roughness) * sin(traversability_slope) + "
+                "traversability_step ^ 1.5", True, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXPRESSIONS))
+@pytest.mark.parametrize("shape", [(77, 101, 9, 0.05), (337, 335, 8, 0.01)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_fused_update_kernel_fusion_expression(cuda, shape, name):
+    """The fusion expression runs inside kernel 1 (its launch count rises, no
+    torch op fuses on the card): arithmetic, min, max, sqrt and ^ 2 are
+    bit-identical to the plain version, exp, sin and a general power within
+    2 float32 steps."""
+    rows, cols, seed, nan_frac = shape
+    expression, rough, ulps = EXPRESSIONS[name]
+    _check_update(torch.as_tensor(_terrain(rows, cols, seed, nan_frac), device=cuda), False,
+                  ulps=ulps, fusion_expression=expression, compute_roughness=rough)
+
+
+def test_fusion_expression_over_the_kernel_caps_raises(cuda):
+    elev = torch.as_tensor(_terrain(40, 40, 1, 0.0), device=cuda)
+    cfg = EstimatorConfig(resolution=RES)
+    deep = "traversability_slope+(1+(2+(3+(4+(5+(6+(7+(8+9))))))))"
+    for expression, what in (("+".join(["traversability_slope"] * 40), "program entries"),
+                             (deep, "stack")):
+        chain = ChainConfig(resolution=RES, fusion_expression=expression)
+        with pytest.raises(ValueError, match=what):
+            update_kernel.fused_update(elev, chain, cfg.veto)
 
 
 @pytest.mark.parametrize("radius_min", [0.3, 0.0])
@@ -268,3 +317,71 @@ def test_online_tick_card_matches_cpu(cuda, mode):
         else:
             assert _same(got, want), name
     np.testing.assert_array_equal(pair[0]._position, pair[1]._position)
+
+
+def test_node_round_trip_card_matches_cpu(cuda, tmp_path):
+    """A node on the card behind the TCP service, under the reference-format
+    configuration (its fusion expression runs inside kernel 1): an update
+    request launches kernel 1 once, a circular path request kernel 2 once per
+    map epoch; verdicts and polygons equal a CPU node's, traversability
+    within 1e-6, and the saved bag loads back bit-identical."""
+    from traversability_estimation_tpu_torch import (
+        SyntheticTerrainSource,
+        TraversabilityClient,
+        TraversabilityNode,
+        TraversabilityServer,
+        config_from_documents,
+        reference_documents,
+    )
+    from traversability_estimation_tpu_torch.utils.rosbag import load_grid_map_bag
+
+    import dataclasses
+
+    cfg = dataclasses.replace(
+        config_from_documents(**reference_documents(), resolution=RES), min_update_rate=0.0)
+    assert cfg.chain.fusion_expression and not cfg.use_generic_chain
+    rng = np.random.default_rng(2)
+    # the source's plateau ends at x = 5.36: the paths straddle its edge
+    starts = np.float32([5.0, 0.0]) + rng.uniform(-1.5, 1.5, (24, 2))
+    poses = starts[:, None] + np.cumsum(rng.uniform(-0.1, 0.1, (24, 6, 2)), 1)
+    paths = [{"poses": p.tolist(), "radius": 0.3, "compute_untraversable_polygon": True}
+             for p in poses[:16]]
+    paths += [{"poses": p.tolist(), "footprint": RECT.tolist(),
+               "compute_untraversable_polygon": True} for p in poses[16:]]
+    answers = {}
+    for device in ("cuda", "cpu"):
+        node = TraversabilityNode(
+            cfg, source=SyntheticTerrainSource(RES), robot_pose=lambda: (5.0, 0.0),
+            persistent_map_length=(12.0, 12.0), device=device)
+        with TraversabilityServer(node) as srv, \
+                TraversabilityClient(*srv.address, timeout=120.0) as cli:
+            k1, k2 = update_kernel.fused_update.launches, field_kernel.dense_circle_field.launches
+            assert cli.update_traversability()["ok"]
+            first = cli.check_footprint_path(paths)
+            again = cli.check_footprint_path(paths)
+            if device == "cuda":
+                assert update_kernel.fused_update.launches == k1 + 1
+                assert field_kernel.dense_circle_field.launches == k2 + 1  # cached for the epoch
+            assert first == again and first["ok"]
+            sub = cli.get_traversability(
+                layers=["traversability", "traversability_step", "traversable_mask"],
+                position=(5.0, 0.0), length=(4.0, 4.0))
+            bag = str(tmp_path / f"{device}.bag")
+            assert cli.save_traversability_map_to_bag(bag)["ok"]
+            want = node.get_traversability_map()
+            msg = load_grid_map_bag(bag)
+            for k, v in msg.data.items():
+                assert np.array_equal(v, want[k].cpu().numpy(), equal_nan=True), k
+            answers[device] = (first["results"], sub)
+    (got, got_sub), (want, want_sub) = answers["cuda"], answers["cpu"]
+    assert any(not r["is_safe"] for r in want) and any(r["is_safe"] for r in want)
+    for g, w in zip(got, want):
+        assert g["is_safe"] == w["is_safe"]
+        assert abs(g["traversability"] - w["traversability"]) <= 1e-6
+        assert g.get("untraversable_polygon") == w.get("untraversable_polygon")
+    assert got_sub["map_info"] == want_sub["map_info"]
+    for k in ("traversability_step", "traversable_mask"):
+        assert np.array_equal(got_sub["data"][k], want_sub["data"][k], equal_nan=True), k
+    g, w = got_sub["data"]["traversability"], want_sub["data"]["traversability"]
+    assert np.array_equal(np.isnan(g), np.isnan(w))
+    assert float(np.nanmax(np.abs(g - w))) <= 1e-6

@@ -35,10 +35,22 @@
 //      candidate-sector combine and the stores of every plane the
 //      estimator keeps (the *_ok planes, traversable_mask, *_footprint).
 // Stencil offsets become linear shared-memory deltas once per block, so
-// every tap is one table read and one load. FusedParams (3,588 bytes) is a
-// __grid_constant__ kernel parameter: no copy before the launch. The launch
-// geometry is computed on the host by ops/update_kernel.py::launch_plan and
-// checked here.
+// every tap is one table read and one load. FusedParams (3,912 bytes, so that
+// each kernel's arguments stay under 4 KB) is a __grid_constant__ kernel
+// parameter: no copy before the launch. The launch geometry is computed on the
+// host by ops/update_kernel.py::launch_plan and checked here.
+//
+// The fused layer is either the weighted sum of the chain's layers or, when
+// the configuration carries a fusion expression (MathExpressionFilter), that
+// expression: the TPU kernel traces it into its body, and a CUDA kernel
+// cannot be re-traced without a rebuild, so the host compiles the expression
+// into a postfix program (ops/expr.py::to_program) that travels in FusedParams
+// and run_program interprets per cell. Its stack is eight named registers
+// that shift on a push and a pop, so no stack slot is indexed by a run-time
+// value and nothing spills to local memory; the interpreter is one call, out
+// of line, so the kernel's other code compiles as it does without it. Each
+// arithmetic entry is one IEEE float32 instruction and the functions are the
+// CUDA math library's (no fast variants), as in the plain version.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,6 +66,8 @@
 #define MAX_CAND 64
 #define MAX_DIRS 8
 #define MAX_FUSE 8
+#define MAX_PROG 64   // entries of the fusion expression's postfix program
+#define MAX_STACK 8   // its stack; the host checks a program's depth against it
 static_assert(K1_THREADS >= MAX_WIN + MAX_DIRS, "the table prologue needs one thread per entry");
 
 // Mirrored field by field by ops/update_kernel.py::FusedParams.
@@ -64,6 +78,7 @@ struct FusedParams {
   int r_ray;  // veto kernel: reach of the ray-fail bits (candidate disc)
   int n_mom_n, n_mom_r, rough_shared, compute_roughness, check_roughness;
   int n_s1, n_s2, n_cnt, n_dirs, n_cand, n_fuse;
+  int n_prog;  // entries of the fusion program; 0: the weighted sum
   int mom_n[MAX_WIN][2];
   float mom_n_d[MAX_WIN][2];
   int mom_r[MAX_WIN][2];
@@ -75,6 +90,8 @@ struct FusedParams {
   int cand[MAX_CAND][3];   // oi, oj, bit mask of the allowed directions
   int fuse_layer[MAX_FUSE];  // 0 slope, 1 step, 2 roughness
   float fuse_w[MAX_FUSE];
+  uint8_t prog_op[MAX_PROG];  // opcodes of ops/expr.py
+  float prog_arg[MAX_PROG];   // a constant, or a layer: 0 slope, 1 step, 2 roughness
   float slope_crit, slope_rcp, step_crit, step_rcp, ccn_rcp, rough_crit, rough_rcp;
   float veto_crit, slope_ncrit, rough_ncrit;
 };
@@ -89,6 +106,10 @@ struct FusedParams {
 __device__ __forceinline__ float nan_max(float a, float b) {
   // torch.maximum: NaN propagates
   return (a != a || b != b) ? (a + b) : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? (a + b) : fminf(a, b);
 }
 
 template <int Pi, int Qi>
@@ -162,6 +183,68 @@ __device__ __forceinline__ float acos_poly(float x) {
   p = p * y + 0x1.921fb4p+0f;
   const float r = sqrtf(nan_max(1.0f - y, 0.0f)) * p;
   return x < 0.0f ? PI_F - r : r;
+}
+
+// Opcodes of the fusion program, mirrored by ops/expr.py.
+enum {
+  OP_CONST = 0, OP_LAYER, OP_NEG, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_POW, OP_MIN, OP_MAX,
+  OP_SQUARE, OP_SQRT, OP_ABS, OP_EXP, OP_LOG, OP_SIN, OP_COS, OP_TAN, OP_ACOS, OP_ASIN,
+  OP_ATAN, OP_FLOOR, OP_CEIL, OP_SIGN
+};
+#define HALF_PI_F (0x1.921fb6p+0f)
+
+// The fusion expression of one cell: the postfix program over the cell's
+// slope, step and roughness layers. s0 is the top of the stack; a push
+// shifts s0..s6 down into s1..s7, a binary entry folds s1 and s0 into s0 and
+// shifts s2..s7 up. The host has checked that the program never holds more
+// than MAX_STACK values and ends with one.
+__device__ __noinline__ float run_program(const FusedParams& p, float slope, float step,
+                                          float rough) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f, s5 = 0.f, s6 = 0.f, s7 = 0.f;
+  for (int pc = 0; pc < p.n_prog; ++pc) {
+    const int op = p.prog_op[pc];
+    if (op <= OP_LAYER) {
+      const float a = p.prog_arg[pc];
+      s7 = s6; s6 = s5; s5 = s4; s4 = s3; s3 = s2; s2 = s1; s1 = s0;
+      s0 = op == OP_CONST ? a : (a == 0.0f ? slope : (a == 1.0f ? step : rough));
+    } else if (op >= OP_ADD && op <= OP_MAX) {
+      const float a = s1, b = s0;
+      float r;
+      switch (op) {
+        case OP_ADD: r = a + b; break;
+        case OP_SUB: r = a - b; break;
+        case OP_MUL: r = a * b; break;
+        case OP_DIV: r = a / b; break;
+        case OP_POW: r = powf(a, b); break;
+        case OP_MIN: r = nan_min(a, b); break;
+        default: r = nan_max(a, b); break;
+      }
+      s0 = r;
+      s1 = s2; s2 = s3; s3 = s4; s4 = s5; s5 = s6; s6 = s7;
+    } else {
+      const float x = s0;
+      float r;
+      switch (op) {
+        case OP_NEG: r = -x; break;
+        case OP_SQUARE: r = x * x; break;
+        case OP_SQRT: r = sqrtf(x); break;
+        case OP_ABS: r = fabsf(x); break;
+        case OP_EXP: r = expf(x); break;
+        case OP_LOG: r = logf(x); break;
+        case OP_SIN: r = sinf(x); break;
+        case OP_COS: r = cosf(x); break;
+        case OP_TAN: r = tanf(x); break;
+        case OP_ACOS: r = acos_poly(x); break;
+        case OP_ASIN: r = HALF_PI_F - acos_poly(x); break;
+        case OP_ATAN: r = atanf(x); break;
+        case OP_FLOOR: r = floorf(x); break;
+        case OP_CEIL: r = ceilf(x); break;
+        default: r = x != x ? x : (x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f)); break;  // sign
+      }
+      s0 = r;
+    }
+  }
+  return s0;
 }
 
 // Step height at window cell `e`: (max - min) over the first window,
@@ -274,6 +357,10 @@ __device__ __forceinline__ CellLayers cell_layers(const FusedParams& p, const fl
     out.rough = has_normal ? rough_v : NAN;
   }
 
+  if (p.n_prog > 0) {
+    out.fused = run_program(p, out.slope, out.step, out.rough);
+    return out;
+  }
   float fused = 0.0f;
   for (int k = 0; k < p.n_fuse; ++k) {
     const int l = p.fuse_layer[k];

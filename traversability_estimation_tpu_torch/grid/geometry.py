@@ -5,7 +5,10 @@ Bresenham walk (torch).
 - spiral -> a static *ordered* list of offsets reproducing grid_map's exact
   ring-walk visit order (the footprint logic is order-dependent within the
   last ring);
-- line   -> Bresenham in closed form over a whole batch of endpoint pairs.
+- line   -> Bresenham in closed form over a whole batch of endpoint pairs,
+  and for one pair on the host;
+- the host's 20-gon circle outline and monotone-chain convex hull, for the
+  untraversable-polygon extraction.
 """
 
 from __future__ import annotations
@@ -73,6 +76,32 @@ def spiral_order(radius: float, resolution: float) -> Tuple[np.ndarray, np.ndarr
             if px == d and py == 0:
                 break
     return np.asarray(offsets, dtype=np.int32), np.asarray(rings, dtype=np.int32)
+
+
+def line_cells_np(start: np.ndarray, end: np.ndarray) -> np.ndarray:
+    """Host Bresenham with grid_map LineIterator parity (float64-free integer form): cells from start to
+    end inclusive, ``n = max(|di|,|dj|) + 1`` cells."""
+    start = np.asarray(start, dtype=np.int64)
+    end = np.asarray(end, dtype=np.int64)
+    delta = np.abs(end - start)
+    sign = np.where(end >= start, 1, -1)
+    if delta[0] >= delta[1]:
+        denom, num_add = delta[0], delta[1]
+        inc_main = np.array([sign[0], 0])
+        inc_over = np.array([0, sign[1]])
+    else:
+        denom, num_add = delta[1], delta[0]
+        inc_main = np.array([0, sign[1]])
+        inc_over = np.array([sign[0], 0])
+    if denom == 0:
+        return start[None, :].astype(np.int32)
+    n = int(denom) + 1
+    k = np.arange(n)
+    num0 = denom // 2
+    # overflow count after k numerator increments
+    over = (num0 + k * num_add) // denom
+    cells = start[None, :] + inc_main[None, :] * k[:, None] + inc_over[None, :] * over[:, None]
+    return cells.astype(np.int32)
 
 
 def line_cells_batch(start_idx: torch.Tensor, end_idx: torch.Tensor, max_cells: int):
@@ -164,3 +193,39 @@ def polygon_area(vertices: torch.Tensor, n_vertices) -> torch.Tensor:
     terms = (vj[..., 0] + vi[..., 0]) * (vj[..., 1] - vi[..., 1])
     terms = torch.where(real, terms, 0.0)
     return (terms.sum(dim=-1) * 0.5).abs()
+
+
+def polygon_from_circle(center: np.ndarray, radius: float, n: int = 20) -> np.ndarray:
+    """grid_map Polygon::fromCircle parity: n-gon approximation (n=20)."""
+    angles = np.arange(n) * (2.0 * np.pi / n)
+    pts = np.stack(
+        [center[0] + radius * np.cos(angles), center[1] + radius * np.sin(angles)],
+        axis=-1,
+    )
+    return pts
+
+
+def convex_hull_np(points: np.ndarray) -> np.ndarray:
+    """Andrew monotone chain, grid_map parity: collinear points removed
+    (cross <= 0 popped); points returned in counter-clockwise order. Inputs
+    with <= 3 points are returned unchanged (grid_map does the same)."""
+    pts = np.asarray(points, dtype=np.float64)
+    if len(pts) <= 3:
+        return pts
+    order = np.lexsort((pts[:, 1], pts[:, 0]))
+    p = pts[order]
+
+    def cross(o, a, b):
+        return (a[0] - o[0]) * (b[1] - o[1]) - (a[1] - o[1]) * (b[0] - o[0])
+
+    lower: list = []
+    for q in p:
+        while len(lower) >= 2 and cross(lower[-2], lower[-1], q) <= 0:
+            lower.pop()
+        lower.append(q)
+    upper: list = []
+    for q in p[::-1]:
+        while len(upper) >= 2 and cross(upper[-2], upper[-1], q) <= 0:
+            upper.pop()
+        upper.append(q)
+    return np.asarray(lower[:-1] + upper[:-1])

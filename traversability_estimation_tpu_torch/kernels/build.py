@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -45,6 +46,9 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# one build and load at a time (a node's timer and service threads may reach
+# a kernel's first use together), and one writer of a launch count at a time
+_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -110,8 +114,15 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `name`, built first if needed."""
-    if name not in _loaded:
-        build([name])
-        _loaded[name] = ctypes.CDLL(str(library_path(name, nvcc_path())))
-    return _loaded[name]
+    with _lock:
+        if name not in _loaded:
+            build([name])
+            _loaded[name] = ctypes.CDLL(str(library_path(name, nvcc_path())))
+        return _loaded[name]
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, from any thread."""
+    with _lock:
+        wrapper.launches += 1
 

@@ -18,11 +18,19 @@ stream without a synchronise. Map state is never written in place: every
 tick swaps in new tensors, so a map or query state taken earlier keeps its
 values.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP item where
-a caller can reach it: the generic filter chain (A11, refused by
-``EstimatorConfig``), the node, service, persistence and message ingest
-(A13), multi-GPU (A14), untraversable polygons and the inclination check
-(A16).
+A configuration whose filter list is not the canonical chain
+(``use_generic_chain``) updates through ``ops/chain.py`` instead (torch ops
+on either device). Failed paths can report their untraversable polygon
+(``models/untraversable.py``, on the host, from one copy of the veto plane
+per map epoch); ``save`` / ``load_elevation_map`` checkpoint the map as a
+rosbag or an NPZ file.
+
+Threads: a node's timer thread swaps in new map state while service threads
+query. Each map epoch's query state, map position and cached dense fields
+are one object, replaced as a whole, so a query reads one epoch throughout
+and a field computed for an old epoch never lands in a new one's cache.
+
+Not ported yet: multi-GPU (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ import torch
 
 from traversability_estimation_tpu_torch.device import DeviceLike, resolve_device
 from traversability_estimation_tpu_torch.grid.gridmap import GridMap
+from traversability_estimation_tpu_torch.models import untraversable
+from traversability_estimation_tpu_torch.ops import chain as spec_chain
 from traversability_estimation_tpu_torch.ops import footprint as fp_ops
 from traversability_estimation_tpu_torch.ops import veto as veto_ops
 from traversability_estimation_tpu_torch.ops.field_kernel import dense_circle_field
@@ -66,6 +76,41 @@ class TraversabilityResult:
     traversability: float = 0.0
     area: float = 0.0
     untraversable_polygon: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class _Epoch:
+    """One map epoch as queries see it: the query state, the map position on
+    the host, and the dense fields (and the host veto plane) cached for this
+    state. A changed map swaps in a new epoch; nothing in one is replaced."""
+
+    state: Optional[fp_ops.QueryState]
+    position: np.ndarray
+    fields: Dict[tuple, object]
+
+
+def _update_step_generic(elevation, filter_specs, resolution, veto_cfg):
+    """Map update through the declarative chain (``ops/chain.py``), for a
+    configured chain the fused update cannot represent (extra filters, custom
+    layer names, reordered stages). Torch ops on the card too: the JAX
+    package computes this route outside any Pallas kernel, so there is no
+    kernel to port here. The veto cascade consumes whichever canonical layers
+    the chain produced; a layer it does not produce is a NaN plane, which
+    every veto passes (they fire only where a layer is exactly 0)."""
+    produced = spec_chain.compile_chain(filter_specs, resolution)({"elevation": elevation})
+    nanplane = torch.full_like(elevation, float("nan"))
+    produced.setdefault("traversability", nanplane)
+    veto_in = {
+        "elevation": elevation,
+        "traversability_slope": produced.get("traversability_slope", nanplane),
+        "traversability_step": produced.get("traversability_step", nanplane),
+    }
+    if veto_cfg.check_roughness:
+        veto_in["traversability_roughness"] = produced.get("traversability_roughness", nanplane)
+    veto = veto_ops.compute_veto_fields(veto_in, veto_cfg)
+    produced.pop("elevation", None)
+    produced.update(veto)
+    return produced
 
 
 def _pose_crop_geometry(flat_xy, margin, H, W, res, p0, bucket):
@@ -278,8 +323,7 @@ class TraversabilityEstimator:
         self.config = config or EstimatorConfig()
         self.device = resolve_device(device)
         self._map: Optional[GridMap] = None
-        self._query_state: Optional[fp_ops.QueryState] = None
-        self._field_cache: Dict[tuple, tuple] = {}
+        self._epoch = _Epoch(None, np.zeros(2, dtype=np.float32), {})
         # online_tick's monotone high-water marks: the polygonal window per
         # (footprint, identity) and the circular sample count stop growing
         # after a few ticks, so a tick's shapes repeat
@@ -295,6 +339,14 @@ class TraversabilityEstimator:
         # which polygonal evaluator ran last, and per-estimator totals
         self.last_polygonal_dispatch: Dict = {}
         self.polygonal_dispatch_counts: Dict[str, int] = {}
+
+    @property
+    def _query_state(self) -> Optional[fp_ops.QueryState]:
+        return self._epoch.state
+
+    @property
+    def _field_cache(self) -> Dict[tuple, object]:
+        return self._epoch.fields
 
     def _plane(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
@@ -319,6 +371,34 @@ class TraversabilityEstimator:
         self._extra_layers = {k: self._plane(v) for k, v in (extra_layers or {}).items()}
         return True
 
+    def set_elevation_map_msg(self, msg) -> bool:
+        """GridMapMessage ingest with the reference's validation
+        (TraversabilityMap::setElevationMap): rejected on a frame-id mismatch
+        and on any missing required elevation layer (fused: elevation,
+        upper_bound, lower_bound; raw adds the variances and time)."""
+        if msg.frame_id and msg.frame_id != self.config.map_frame_id:
+            return False
+        if any(layer not in msg.data for layer in self.config.elevation_layers):
+            return False
+        extra = {k: v for k, v in msg.data.items() if k != "elevation"}
+        return self.set_elevation_map(
+            msg.data["elevation"], np.asarray(msg.position[:2], np.float32), extra_layers=extra
+        )
+
+    def initialize_from_grid_map_msg(self, msg) -> bool:
+        """loadElevationMap's lenient path: MISSING required layers are
+        padded with 0.0 before ingest
+        (initializeTraversabilityMapFromGridMap)."""
+        data = dict(msg.data)
+        first = next(iter(data.values()))
+        for layer in self.config.elevation_layers:
+            if layer not in data:
+                data[layer] = np.zeros_like(np.asarray(first, np.float32))
+        extra = {k: v for k, v in data.items() if k != "elevation"}
+        return self.set_elevation_map(
+            data["elevation"], np.asarray(msg.position[:2], np.float32), extra_layers=extra
+        )
+
     def set_elevation_from_image(
         self, image, min_height: float = 0.0, max_height: float = 1.0, position=(0.0, 0.0)
     ) -> bool:
@@ -334,16 +414,16 @@ class TraversabilityEstimator:
         return torch.as_tensor(self._position, dtype=torch.float32, device=self.device)
 
     def _set_query_state(self, layers: Dict[str, torch.Tensor]) -> None:
-        """The query state of `layers` at the current position; a changed
-        map invalidates the cached dense circle fields."""
-        self._query_state = fp_ops.QueryState(
+        """A new map epoch: the query state of `layers` at the current
+        position, with an empty cache of dense circle fields."""
+        state = fp_ops.QueryState(
             traversability=layers["traversability"],
             traversable_mask=layers["traversable_mask"],
             position=self._position_tensor(),
             resolution=self.config.chain.resolution,
             default_traversability=self._traversability_default,
         )
-        self._field_cache.clear()
+        self._epoch = _Epoch(state, np.array(self._position, np.float32), {})
 
     def _merge_geometry(self, patch, center_xy):
         """Where a patch centred at `center_xy` lands: its origin (i0, j0),
@@ -409,7 +489,6 @@ class TraversabilityEstimator:
         if self._map is not None:
             self._map = self._map.recenter(snapped)
             self._set_query_state(self._map.layers)
-        self._field_cache.clear()
         return True
 
     def update_with_submap(
@@ -422,7 +501,9 @@ class TraversabilityEstimator:
         input crop expanded by one more halo so no crop-edge artifact
         survives (halo = the largest stencil reach, ``veto.required_halo``).
         Every layer is a local function of elevation, so the result equals a
-        full update of the merged map.
+        full update of the merged map. The refresh runs the canonical chain
+        (``fused_update``) also under ``use_generic_chain``, as the JAX
+        package's does: only ``update()`` routes to the generic chain.
 
         `sync=False` skips the trailing synchronise, so the refresh is only
         queued and overlaps with whatever the caller does next;
@@ -503,8 +584,9 @@ class TraversabilityEstimator:
         results up to the float32 rounding of the query crop's origin (a
         pose on a cell border may fall into the neighbouring cell); falls
         back to exactly that sequence before the first update, when the merge region runs within
-        two halos of a map edge, when the footprint is non-convex, or when
-        the per-path window exceeds the grouped evaluator's cap.
+        two halos of a map edge, under a generic filter chain, when the
+        footprint is non-convex, or when the per-path window exceeds the
+        grouped evaluator's cap.
 
         Returns (safe (P,), trav (P,)) as tensors on the estimator's device,
         or None when the fallback's update failed (the patch off the map)."""
@@ -553,7 +635,7 @@ class TraversabilityEstimator:
         if not (
             i0 >= 2 * halo and j0 >= 2 * halo
             and i0 + ph + 2 * halo <= H and j0 + pw + 2 * halo <= W
-        ):
+        ) or (self.config.use_generic_chain and self.config.filter_specs):
             return _unfused()
 
         # polygonal mode: resolve the grouped evaluator's static dispatch on
@@ -671,7 +753,13 @@ class TraversabilityEstimator:
         if self._elevation is None:
             return False
         t0 = time.perf_counter()
-        layers = fused_update(self._elevation, self.config.chain, self.config.veto)
+        if self.config.use_generic_chain and self.config.filter_specs:
+            layers = _update_step_generic(
+                self._elevation, self.config.filter_specs, self.config.chain.resolution,
+                self.config.veto,
+            )
+        else:
+            layers = fused_update(self._elevation, self.config.chain, self.config.veto)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_update_seconds = time.perf_counter() - t0
@@ -701,9 +789,13 @@ class TraversabilityEstimator:
 
     @property
     def query_state(self) -> fp_ops.QueryState:
-        if self._query_state is None:
+        return self._current_epoch().state
+
+    def _current_epoch(self) -> _Epoch:
+        epoch = self._epoch
+        if epoch.state is None:
             raise RuntimeError("traversability map not initialized; call update()")
-        return self._query_state
+        return epoch
 
     # ------------------------------------------------------------------
     # queries
@@ -724,10 +816,6 @@ class TraversabilityEstimator:
         # pose, masked by n_poses), so grouping is by footprint alone
         polygonal: Dict[tuple, List[int]] = {}
         for i, p in enumerate(paths):
-            if p.compute_untraversable_polygon:
-                raise NotImplementedError(
-                    "untraversable polygons are not ported yet (ROADMAP A16)"
-                )
             poses = np.atleast_2d(np.asarray(p.poses, dtype=np.float32))
             if poses.shape[0] == 0 or poses.size == 0:
                 continue
@@ -737,10 +825,11 @@ class TraversabilityEstimator:
                 fp = np.asarray(p.footprint, np.float32)
                 key = (fp.shape[0], fp.tobytes(), bool(p.conservative))
                 polygonal.setdefault(key, []).append(i)
+        epoch = self._current_epoch()  # one epoch for the whole request
         for radius, ids in circular.items():
-            self._run_circular(paths, results, ids, radius)
+            self._run_circular(epoch, paths, results, ids, radius)
         for ids in polygonal.values():
-            self._run_polygonal(paths, results, ids)
+            self._run_polygonal(epoch, paths, results, ids)
         return results
 
     @staticmethod
@@ -754,14 +843,7 @@ class TraversabilityEstimator:
             b *= 2
         return b
 
-    def _check_inclination_unported(self) -> None:
-        if self.config.footprint.check_robot_inclination:
-            raise NotImplementedError(
-                "check_robot_inclination is not ported yet (ROADMAP A16)"
-            )
-
-    def _run_circular(self, paths, results, ids, radius):
-        self._check_inclination_unported()
+    def _run_circular(self, epoch, paths, results, ids, radius):
         offset = self.config.footprint.circular_footprint_offset
         N = max(np.atleast_2d(np.asarray(paths[i].poses)).shape[0] for i in ids)
         P = len(ids)
@@ -773,18 +855,35 @@ class TraversabilityEstimator:
             poses[b, len(pp) :] = pp[-1]
             n_poses[b] = len(pp)
         max_cells = self._max_segment_cells(poses, n_poses)
-        field = self._circle_field(float(radius), float(offset))
+        field = self._circle_field(float(radius), float(offset), epoch)
         safe, trav = fp_ops.check_circular_paths(
-            self.query_state, poses, n_poses, float(radius), float(offset),
+            epoch.state, poses, n_poses, float(radius), float(offset),
             int(max_cells), field, bool(np.any(n_poses <= 1)),
         )
         safe = safe.cpu().numpy()
         trav = trav.cpu().numpy()
+        incl = self._inclination_ok(epoch, poses, n_poses)
+        if incl is not None:
+            trav = np.where(incl, trav, 0.0)
+            safe = safe & incl
         for b, i in enumerate(ids):
             results[i].is_safe = bool(safe[b])
             results[i].traversability = float(trav[b])
+            if paths[i].compute_untraversable_polygon and not safe[b]:
+                # the failing cells the check's spiral walks push
+                results[i].untraversable_polygon = (
+                    untraversable.circular_path_untraversable_polygon(
+                        self._fail_mask_host(epoch),
+                        self.config.chain.resolution,
+                        epoch.position,
+                        poses[b, : n_poses[b]],
+                        float(radius),
+                        float(offset),
+                        epoch.state.default_traversability,
+                    )
+                )
 
-    def _run_polygonal(self, paths, results, ids):
+    def _run_polygonal(self, epoch, paths, results, ids):
         """One dispatch for paths sharing (footprint, conservative)."""
         first = paths[ids[0]]
         fp = np.asarray(first.footprint, np.float32)
@@ -802,16 +901,35 @@ class TraversabilityEstimator:
                 q = np.asarray(paths[i].orientations, np.float32).reshape(n, 4)
                 quats[b, :n] = q
                 quats[b, n:] = q[-1]
-        safe, trav, area = self.check_polygonal_paths_batch(
-            pos3, quats, np.asarray(counts, np.int32), fp, bool(first.conservative)
-        )
+        n_poses = np.asarray(counts, np.int32)
+        conservative = bool(first.conservative)
+        safe, trav, area = self._polygonal_batch(epoch, pos3, quats, n_poses, fp, conservative)
         safe = safe.cpu().numpy()
         trav = trav.cpu().numpy()
         area = area.cpu().numpy()
+        incl = self._inclination_ok(epoch, pos3[..., :2], n_poses)
+        if incl is not None:
+            trav = np.where(incl, trav, 0.0)
+            area = np.where(incl, area, 0.0)
+            safe = safe & incl
         for b, i in enumerate(ids):
             results[i].is_safe = bool(safe[b])
             results[i].traversability = float(trav[b])
             results[i].area = float(area[b])
+            if paths[i].compute_untraversable_polygon and not safe[b]:
+                # failing cells of the first failing segment's hull
+                results[i].untraversable_polygon = (
+                    untraversable.polygonal_path_untraversable_polygon(
+                        self._fail_mask_host(epoch),
+                        self.config.chain.resolution,
+                        epoch.position,
+                        pos3[b, : n_poses[b]],
+                        quats[b, : n_poses[b]],
+                        fp,
+                        conservative,
+                        epoch.state.default_traversability,
+                    )
+                )
 
     def check_polygonal_paths_batch(
         self,
@@ -827,12 +945,16 @@ class TraversabilityEstimator:
         Returns (is_safe (P,), trav (P,), area (P,)) tensors on the
         estimator's device; ``last_polygonal_dispatch`` says which evaluator
         ran."""
-        self._check_inclination_unported()
+        return self._polygonal_batch(
+            self._current_epoch(), positions, quaternions, n_poses, footprint, conservative
+        )
+
+    def _polygonal_batch(self, epoch, positions, quaternions, n_poses, footprint, conservative):
         quats_np = np.asarray(quaternions)
         identity = bool(np.all(np.abs(quats_np - np.asarray([0, 0, 0, 1])) < 1e-12))
         stats: Dict = {}
         out = _dispatch_polygonal(
-            self.query_state, np.asarray(positions, np.float32), quats_np,
+            epoch.state, np.asarray(positions, np.float32), quats_np,
             np.asarray(n_poses), np.asarray(footprint, np.float32),
             self.config.chain.resolution, conservative, identity, stats_out=stats,
         )
@@ -861,59 +983,59 @@ class TraversabilityEstimator:
         a crop covering the pose bounding box + the spiral reach, so a
         batch's cost scales with its footprint, not the map size; results
         are identical (every touched cell lies inside the crop)."""
-        self._check_inclination_unported()
+        epoch = self._current_epoch()
         offset = self.config.footprint.circular_footprint_offset
         poses = np.asarray(poses, np.float32)
         n_poses = np.asarray(n_poses, np.int32)
         max_cells = self._max_segment_cells(poses, n_poses)
-        H, W = self.query_state.shape
+        H, W = epoch.state.shape
         if crop is None:
             crop = H * W > 4_000_000
         if crop:
-            state, field = self._cropped_state_and_field(poses, radius, offset)
+            state, field = self._cropped_state_and_field(epoch, poses, radius, offset)
         else:
-            state = self.query_state
-            field = self._circle_field(float(radius), float(offset))
+            state = epoch.state
+            field = self._circle_field(float(radius), float(offset), epoch)
         return fp_ops.check_circular_paths(
             state, poses, n_poses, float(radius), float(offset), int(max_cells),
             field, bool(np.any(n_poses <= 1)),
         )
 
-    def _cropped_state_and_field(self, poses: np.ndarray, radius, offset):
+    def _cropped_state_and_field(self, epoch, poses: np.ndarray, radius, offset):
         """Crop the query planes to the pose bbox + spiral reach (bucketed to
         512s so jittering batches reuse one crop) and build the field on it."""
         res = self.config.chain.resolution
-        H, W = self.query_state.shape
+        H, W = epoch.state.shape
         flat = np.asarray(poses, np.float32).reshape(-1, 2)
         margin = radius + offset + 3 * res
         half = np.array([H, W]) * res / 2.0
-        p0 = np.asarray(self._position, np.float64) + half
+        p0 = np.asarray(epoch.position, np.float64) + half
         i_lo, j_lo, hc, wc, pos_crop = _pose_crop_geometry(
             flat, margin, H, W, res, p0, bucket=512
         )
         key = ("crop", float(radius), float(offset), i_lo, j_lo, hc, wc)
-        if key not in self._field_cache:
-            full = self.query_state
+        if key not in epoch.fields:
+            full = epoch.state
             state = fp_ops.QueryState(
                 traversability=full.traversability[i_lo : i_lo + hc, j_lo : j_lo + wc],
                 traversable_mask=full.traversable_mask[i_lo : i_lo + hc, j_lo : j_lo + wc],
                 position=torch.as_tensor(pos_crop, dtype=torch.float32, device=self.device),
                 resolution=res,
-                default_traversability=self._traversability_default,
+                default_traversability=full.default_traversability,
             )
             field = dense_circle_field(state, float(radius + offset), float(radius))
-            self._field_cache[key] = (state, field)
-        return self._field_cache[key]
+            epoch.fields[key] = (state, field)
+        return epoch.fields[key]
 
-    def _circle_field(self, radius: float, offset: float):
+    def _circle_field(self, radius: float, offset: float, epoch: Optional[_Epoch] = None):
         """Dense circle field cached per map epoch (the reference's
-        traversability_footprint memo cache, computed densely)."""
+        traversability_footprint memo cache, computed densely). Two threads
+        that miss together both compute it; either result serves."""
+        epoch = epoch or self._current_epoch()
         key = (radius, offset)
-        if key not in self._field_cache:
-            self._field_cache[key] = dense_circle_field(
-                self.query_state, radius + offset, radius
-            )
-        return self._field_cache[key]
+        if key not in epoch.fields:
+            epoch.fields[key] = dense_circle_field(epoch.state, radius + offset, radius)
+        return epoch.fields[key]
 
     def _max_segment_cells(self, poses, n_poses) -> int:
         res = self.config.chain.resolution
@@ -924,6 +1046,54 @@ class TraversabilityEstimator:
         n = int(np.ceil(longest / res)) + 3
         # multiples of 8: a stable sample count across batches
         return ((n + 7) // 8) * 8
+
+    def _fail_mask_host(self, epoch: Optional[_Epoch] = None) -> np.ndarray:
+        """Host copy of the dense veto-fail plane, cached per map epoch: the
+        cell set the untraversable-polygon extraction reads. The one
+        device-to-host copy of a whole plane on the query path."""
+        epoch = epoch or self._current_epoch()
+        key = ("fail_mask_host",)
+        if key not in epoch.fields:
+            epoch.fields[key] = ~epoch.state.traversable_mask.cpu().numpy()
+        return epoch.fields[key]
+
+    def path_polygons(self, path: FootprintPath):
+        """Publication streams (footprints, untraversables, robot_height) of
+        one path check, the reference's publishPolygons side channel: the
+        footprint polygon of every evaluated pose or segment and the hulls of
+        the failing cells. Host geometry against the dense veto-fail plane;
+        a node calls this only when polygon subscribers exist."""
+        if not self.initialized:
+            return [], [], 0.0
+        poses = np.atleast_2d(np.asarray(path.poses, np.float64))
+        if poses.shape[0] == 0 or poses.size == 0:
+            return [], [], 0.0
+        epoch = self._current_epoch()
+        default = epoch.state.default_traversability
+        res = self.config.chain.resolution
+        if path.footprint is None or len(path.footprint) == 0:
+            return untraversable.circular_path_polygons(
+                self._fail_mask_host(epoch), res, epoch.position, poses, float(path.radius),
+                self.config.footprint.circular_footprint_offset, default,
+            )
+        return untraversable.polygonal_path_polygons(
+            self._fail_mask_host(epoch), res, epoch.position, poses, path.orientations,
+            np.asarray(path.footprint, np.float64), bool(path.conservative), default,
+        )
+
+    def _inclination_ok(self, epoch: _Epoch, poses: np.ndarray, n_poses: np.ndarray):
+        """checkInclination gate, only when configured and a `robot_slope`
+        layer exists: (P,) bool on the host, else None."""
+        if not self.config.footprint.check_robot_inclination:
+            return None
+        gmap = self._map
+        if gmap is None or "robot_slope" not in gmap.layers:
+            return None
+        max_cells = self._max_segment_cells(poses, n_poses)
+        ok = fp_ops.check_inclination_paths(
+            epoch.state, gmap["robot_slope"], poses, n_poses, int(max_cells)
+        )
+        return ok.cpu().numpy()
 
     # ------------------------------------------------------------------
     # dense footprint services
@@ -991,7 +1161,7 @@ class TraversabilityEstimator:
     def reset_footprint_layers(self) -> None:
         """resetTraversabilityFootprintLayers: drop the cached dense circle
         fields and NaN-clear any footprint layers on the map."""
-        self._field_cache.clear()
+        self._epoch = dataclasses.replace(self._epoch, fields={})
         if self._map is not None:
             for layer in ("step_footprint", "slope_footprint", "traversability_footprint"):
                 if layer in self._map.layers:
@@ -1012,6 +1182,52 @@ class TraversabilityEstimator:
         """The score of unknown cells for later map updates, bounded to
         [0, 1]."""
         self._traversability_default = min(max(value, 0.0), 1.0)
+
+    def save(self, path: str) -> None:
+        """Snapshot the full map state: ``.bag`` writes the reference's own
+        checkpoint format (save_traversability_map_to_bag: loadable by stock
+        ROS tooling and by ``load_elevation_map``; float layers only, as
+        grid_map holds them); anything else writes an NPZ snapshot of every
+        layer. Every layer is copied to the host for it."""
+        if self._map is None:
+            raise RuntimeError("nothing to save")
+        host = {k: v.cpu().numpy() for k, v in self._map.layers.items()}
+        if path.endswith(".bag"):
+            from traversability_estimation_tpu_torch.utils.rosbag import save_grid_map_bag
+
+            save_grid_map_bag(
+                path,
+                {k: v for k, v in host.items() if v.dtype != np.bool_},
+                self.config.chain.resolution,
+                np.asarray(self._position),
+                frame_id=self.config.map_frame_id,
+                topic="grid_map",
+            )
+            return
+        np.savez_compressed(
+            path,
+            resolution=self.config.chain.resolution,
+            position=np.asarray(self._position),
+            **{f"layer_{k}": v for k, v in host.items()},
+        )
+
+    def load_elevation_map(self, path: str) -> bool:
+        """Load from a rosbag (the reference's checkpoint format) or an NPZ
+        snapshot, then recompute traversability (loadElevationMap: recompute
+        on load). False on unreadable input."""
+        try:
+            if path.endswith(".bag"):
+                from traversability_estimation_tpu_torch.utils.rosbag import load_grid_map_bag
+
+                if not self.initialize_from_grid_map_msg(load_grid_map_bag(path)):
+                    return False
+            else:
+                with np.load(path) as blob:
+                    self.set_elevation_map(blob["layer_elevation"], blob["position"])
+        except (OSError, ValueError, KeyError) as e:
+            logger.error("load_elevation_map(%s): %s", path, e)
+            return False
+        return self.update()
 
     def map_has_valid_traversability_at(self, x: float, y: float) -> bool:
         """mapHasValidTraversabilityAt: (x, y) lies on the map and its cell

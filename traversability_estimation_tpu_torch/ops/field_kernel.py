@@ -115,7 +115,7 @@ def device_tables(radius_max: float, resolution: float, H: int, W: int, device: 
 _lib = None
 
 
-def _library() -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
     """Kernel 2's library, built at first use, with its C interface."""
     global _lib
     if _lib is None:
@@ -160,7 +160,7 @@ def dense_circle_field(
     if in_map is not None:
         inm = in_map.to(device=dev, dtype=torch.bool).contiguous().view(torch.uint8)
     span_rcp = rcp(radius_max - radius_min) if radius_min != 0.0 else 0.0
-    lib = _library()
+    lib = library()
     with torch.cuda.device(dev):
         rc = lib.te_circle_field(
             trav.data_ptr(), mask.data_ptr(), None if inm is None else inm.data_ptr(),
@@ -174,7 +174,7 @@ def dense_circle_field(
         raise RuntimeError(
             f"dense_circle_field kernel: {lib.te_circle_field_error_string(rc).decode()}"
         )
-    dense_circle_field.launches += 1
+    build.count_launch(dense_circle_field)
     return ok, tv
 
 
@@ -183,7 +183,7 @@ dense_circle_field.launches = 0
 
 def occupancy(plan: FieldPlan) -> int:
     """Resident blocks per SM of kernel 2 for this plan."""
-    return _library().te_circle_field_occupancy(plan.stride, plan.smem_bytes)
+    return library().te_circle_field_occupancy(plan.stride, plan.smem_bytes)
 
 
 def kernel_bytes(H: int, W: int) -> int:

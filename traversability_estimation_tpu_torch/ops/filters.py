@@ -123,16 +123,10 @@ class ChainConfig:
         ("traversability_step", 1.0 / 3.0),
         ("traversability_roughness", 1.0 / 3.0),
     )
-    # arithmetic fusion over layer names; not ported yet (ROADMAP A11)
+    # MathExpressionFilter: an arithmetic expression over the chain's layer
+    # names (ops/expr.py); when set it takes the weighted sum's place
     fusion_expression: str = ""
     compute_roughness: bool = True
-
-    def __post_init__(self):
-        if self.fusion_expression:
-            raise NotImplementedError(
-                "chain.fusion_expression is not ported yet (ROADMAP A11: "
-                "generic chain and fusion_expression)"
-            )
 
 
 def _shifted(arr: torch.Tensor, di: int, dj: int, fill) -> torch.Tensor:
@@ -431,8 +425,15 @@ def run_chain(elevation: torch.Tensor, config: ChainConfig) -> Dict[str, torch.T
             config.roughness_estimation_radius,
             moments=shared,
         )
-    fused = torch.zeros_like(out["traversability_slope"])
-    for layer, w in fusion_terms(config):
-        fused = fused + w * out[layer]
+    if config.fusion_expression:
+        from traversability_estimation_tpu_torch.ops import expr
+
+        fused = expr.evaluate(expr.parse(config.fusion_expression), out)
+        # an expression of constants alone still fills a plane
+        fused = fused.to(torch.float32).expand_as(out["traversability_slope"]).contiguous()
+    else:
+        fused = torch.zeros_like(out["traversability_slope"])
+        for layer, w in fusion_terms(config):
+            fused = fused + w * out[layer]
     out["traversability"] = fused
     return out

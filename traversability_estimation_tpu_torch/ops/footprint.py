@@ -396,6 +396,33 @@ def aggregate_sampled_segments(
     return safe, torch.where(safe, trav, 0.0)
 
 
+def check_inclination_paths(
+    state: QueryState, robot_slope: torch.Tensor, poses, n_poses, max_segment_cells: int
+) -> torch.Tensor:
+    """Batched checkInclination: a path fails if any valid `robot_slope`
+    cell on any segment's full Bresenham line (stride 1) is exactly 0; a
+    single-pose path tests the pose's own cell. No filter of the reference
+    produces `robot_slope`: the check is active only when a configured chain
+    adds that layer. Returns ok (P,) bool."""
+    dev = state.device
+    poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
+    n_poses = torch.as_tensor(n_poses, dtype=torch.int32, device=dev)
+    N = poses.shape[1]
+    fail_plane = robot_slope == 0.0  # NaN -> False (invalid cells skipped)
+
+    f0, _ = _gather_plane(fail_plane, _index_of(state, poses[:, 0, :]), False)
+    if N == 1:
+        return ~f0
+    seg_valid = torch.arange(1, N, device=dev)[None, :] < n_poses[:, None]
+    cells, cell_valid, _ = line_cells_batch(
+        _index_of(state, poses[:, :-1, :]), _index_of(state, poses[:, 1:, :]), max_segment_cells
+    )
+    f, _ = _gather_plane(fail_plane, cells, False)
+    seg_fail = (f & cell_valid).any(dim=-1)
+    multi_fail = (seg_fail & seg_valid).any(dim=-1)
+    return torch.where(n_poses == 1, ~f0, ~multi_fail)
+
+
 def traversability_footprint_circles(
     state: QueryState, radius: float, offset: float
 ) -> torch.Tensor:

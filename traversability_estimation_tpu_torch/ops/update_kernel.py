@@ -24,16 +24,18 @@ import torch
 
 from traversability_estimation_tpu_torch.grid.geometry import circle_offsets
 from traversability_estimation_tpu_torch.kernels import build
-from traversability_estimation_tpu_torch.ops import filters, veto
+from traversability_estimation_tpu_torch.ops import expr, filters, veto
 from traversability_estimation_tpu_torch.ops.filters import ChainConfig, f32, rcp
 from traversability_estimation_tpu_torch.ops.veto import VetoConfig
 
 # the kernels' tiles, one cell per thread, and the capacities of their
-# stencil tables (csrc/fused_update.cu checks every launch plan against its
-# own tiles; the table caps fix the size of FusedParams, checked at load)
+# stencil tables and of the fusion program (csrc/fused_update.cu checks every
+# launch plan against its own tiles; the caps fix the size of FusedParams,
+# checked at load)
 TILE_W = 32
 TILE_H = (8, 16)  # layers kernel, veto kernel
 MAX_WIN, MAX_COUNT, MAX_CAND, MAX_DIRS, MAX_FUSE = 32, 128, 64, 8, 8
+MAX_PROG, MAX_STACK = expr.MAX_PROG, expr.MAX_STACK
 SMEM_LIMIT = 232_448  # dynamic + static shared memory one block may use on an H100
 
 _FUSE_LAYERS = {
@@ -52,8 +54,9 @@ def _floats(n):
 
 
 class FusedParams(ctypes.Structure):
-    """Mirror of ``struct FusedParams`` in csrc/fused_update.cu (all fields
-    4 bytes wide, so the layouts agree without padding)."""
+    """Mirror of ``struct FusedParams`` in csrc/fused_update.cu (every field
+    4 bytes wide but the program's opcodes, MAX_PROG single bytes, so the
+    layouts agree without padding)."""
 
     _fields_ = [
         ("halo", ctypes.c_int), ("r_sh", ctypes.c_int),
@@ -63,6 +66,7 @@ class FusedParams(ctypes.Structure):
         ("check_roughness", ctypes.c_int),
         ("n_s1", ctypes.c_int), ("n_s2", ctypes.c_int), ("n_cnt", ctypes.c_int),
         ("n_dirs", ctypes.c_int), ("n_cand", ctypes.c_int), ("n_fuse", ctypes.c_int),
+        ("n_prog", ctypes.c_int),
         ("mom_n", _ints(2 * MAX_WIN)), ("mom_n_d", _floats(2 * MAX_WIN)),
         ("mom_r", _ints(2 * MAX_WIN)), ("mom_r_d", _floats(2 * MAX_WIN)),
         ("s1", _ints(2 * MAX_WIN)), ("s2", _ints(2 * MAX_WIN)),
@@ -70,6 +74,7 @@ class FusedParams(ctypes.Structure):
         ("dirs", _ints(3 * MAX_DIRS)),
         ("cand", _ints(3 * MAX_CAND)),
         ("fuse_layer", _ints(MAX_FUSE)), ("fuse_w", _floats(MAX_FUSE)),
+        ("prog_op", ctypes.c_uint8 * MAX_PROG), ("prog_arg", _floats(MAX_PROG)),
         ("slope_crit", ctypes.c_float), ("slope_rcp", ctypes.c_float),
         ("step_crit", ctypes.c_float), ("step_rcp", ctypes.c_float),
         ("ccn_rcp", ctypes.c_float), ("rough_crit", ctypes.c_float),
@@ -89,6 +94,33 @@ def _fill(arr, rows, cap: int, what: str) -> int:
 
 def _reach(offsets) -> int:
     return max((max(abs(int(a)), abs(int(b))) for a, b in offsets), default=0)
+
+
+def fusion_program(chain_cfg: ChainConfig) -> Tuple[Tuple[int, ...], Tuple[float, ...]]:
+    """The postfix program ``(ops, args)`` of the configuration's fusion
+    expression for kernel 1, empty without one. Its variables are the layers
+    the chain produces, numbered as the kernel numbers them. Raises
+    ExpressionError for any other name, and ValueError for a program the
+    kernel cannot hold."""
+    if not chain_cfg.fusion_expression:
+        return (), ()
+    layers = [
+        k for k in _FUSE_LAYERS
+        if chain_cfg.compute_roughness or k != "traversability_roughness"
+    ]
+    ops, args = expr.to_program(expr.parse(chain_cfg.fusion_expression), layers)
+    if len(ops) > MAX_PROG:
+        raise ValueError(
+            f"fused_update: the fusion expression compiles to {len(ops)} program entries, "
+            f"more than the kernel's cap of {MAX_PROG}"
+        )
+    depth = expr.stack_depth(ops)
+    if depth > MAX_STACK:
+        raise ValueError(
+            f"fused_update: the fusion expression needs a stack of {depth} values, "
+            f"more than the kernel's cap of {MAX_STACK}"
+        )
+    return ops, args
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,6 +159,9 @@ def kernel_params(chain_cfg: ChainConfig, veto_cfg: VetoConfig) -> FusedParams:
         p.fuse_layer, [(_FUSE_LAYERS[k],) for k, _ in terms], MAX_FUSE, "fusion terms"
     )
     _fill(p.fuse_w, [(w,) for _, w in terms], MAX_FUSE, "")
+    ops, args = fusion_program(chain_cfg)
+    p.n_prog = _fill(p.prog_op, [(op,) for op in ops], MAX_PROG, "fusion program entries")
+    _fill(p.prog_arg, [(a,) for a in args], MAX_PROG, "")
 
     p.slope_crit = f32(chain_cfg.slope_critical_value)
     p.slope_rcp = rcp(chain_cfg.slope_critical_value)
@@ -235,7 +270,7 @@ def launch_plan(params: FusedParams, H: int, W: int) -> UpdatePlan:
 _lib = None
 
 
-def _library() -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
     """Kernel 1's library, built at first use, with its C interface."""
     global _lib
     if _lib is None:
@@ -291,7 +326,7 @@ def fused_update(
     def ptr(name):
         return out[name].data_ptr() if name in out else None
 
-    lib = _library()
+    lib = library()
     with torch.cuda.device(dev):
         rc = lib.te_fused_update(
             elev.data_ptr(), H, W, ctypes.byref(params), plan.as_c_ints(),
@@ -304,7 +339,7 @@ def fused_update(
         )
     if rc != 0:
         raise RuntimeError(f"fused_update kernel: {lib.te_fused_update_error_string(rc).decode()}")
-    fused_update.launches += 1
+    build.count_launch(fused_update)
     return out
 
 
@@ -314,7 +349,7 @@ fused_update.launches = 0
 def occupancy(plan: UpdatePlan) -> Tuple[int, int]:
     """Resident blocks per SM of the layers and the veto kernel for this
     plan."""
-    lib = _library()
+    lib = library()
     return (lib.te_fused_update_occupancy(0, plan.smem_layers),
             lib.te_fused_update_occupancy(1, plan.smem_veto))
 
@@ -340,7 +375,8 @@ def kernel_operations(chain_cfg: ChainConfig, veto_cfg: VetoConfig, H: int, W: i
     slope = 24
     step = 4 * p.n_s1 + 3 + 4 * p.n_s2 + 8
     rough = 46 if p.compute_roughness else 0
-    fusion = 2 * p.n_fuse
+    # each program entry that is not a push is one operation
+    fusion = sum(op > expr.OP_LAYER for op in p.prog_op[: p.n_prog]) if p.n_prog else 2 * p.n_fuse
     counts = 2 * p.n_cnt * (2 if p.check_roughness else 1)
     walk = sum(3 + 4 * p.dirs[3 * d + 2] for d in range(p.n_dirs)) + 2
     candidates = 2 * p.n_cand + 1

@@ -17,6 +17,7 @@ import torch
 from traversability_estimation_tpu_torch.device import DeviceLike, resolve_device
 from traversability_estimation_tpu_torch.grid.gridmap import GridMap
 from traversability_estimation_tpu_torch.models.estimator import TraversabilityEstimator
+from traversability_estimation_tpu_torch.ops.chain import FilterSpec
 from traversability_estimation_tpu_torch.ops.filters import ChainConfig
 from traversability_estimation_tpu_torch.ops.footprint import QueryState
 from traversability_estimation_tpu_torch.utils.config import EstimatorConfig, FootprintConfig
@@ -46,12 +47,13 @@ def config_from_fields(obj_or_dict: Any) -> EstimatorConfig:
     dataclass instance with the same field names (the JAX package's
     ``EstimatorConfig``) or its ``dataclasses.asdict``.
 
-    A configured generic chain (``use_generic_chain`` with filter specs)
-    raises NotImplementedError; filter specs alone are ignored, as the JAX
-    estimator ignores them without ``use_generic_chain``."""
+    Filter specs (dataclass instances or their fields) become the port's
+    ``FilterSpec``s, and ``use_generic_chain`` is carried across, so both
+    packages run the same chain."""
     fields = dict(_as_fields(obj_or_dict))
-    if fields.get("use_generic_chain") and not fields.get("filter_specs"):
-        fields["use_generic_chain"] = False
+    fields["filter_specs"] = tuple(
+        _build(FilterSpec, _as_fields(spec)) for spec in fields.get("filter_specs") or ()
+    )
     chain = fields.get("chain")
     if chain is not None and not isinstance(chain, ChainConfig):
         fields["chain"] = _build(ChainConfig, _as_fields(chain))
