@@ -67,23 +67,45 @@ Phases (any failure exits non-zero):
    (``update_traversability``, then ``check_footprint_path`` with 64 circular
    paths x 10 poses and 8 polygonal ones, all asking for their untraversable
    polygon), the first 10 on a 5 m circle that crosses a plateau edge
-   (verdicts of both kinds), the last 10 on config 4's 12.5 m circle; then
-   ``get_traversability`` of a 4 m submap with two layers. Node B holds
-   config 3's 336 x 336 map: ``set_elevation_map``,
+   (verdicts of both kinds), the last 10 on config 4's 12.5 m circle, with
+   ``get_traversability`` of a 4 m submap with two layers after the sixth.
+   Node B holds config 3's 336 x 336 map: ``set_elevation_map``,
    ``traversability_footprint``, ``save_traversability_map_to_bag``,
    ``load_elevation_map`` of that bag, ``update_parameters`` (documents that
    change the fusion expression), ``update_traversability``,
    ``check_footprint_path``, ``get_traversability``. Bars: every response
    ok; kernel 1 launched once per update request and kernel 2 once per map
    epoch with circular paths; against the same requests to nodes on the CPU
-   is_safe and polygons equal, traversability within 1e-6, area within rtol 1e-5, step layers and
-   masks exact, float layers within 1e-6; the saved bag loads back
-   bit-identical in every float layer. Then node A's timer runs at 50 Hz for
-   2 s while four client threads query it: every response ok, no failed
-   tick. Wall times per request kind from the client's side;
-9. a ``kernels`` JSON line (launches summed over the paths of phases 4, 5,
-   7 and 8), the card line, and the contract line ``{"ok": true, "device":
-   {...}}`` last.
+   (node A's first 6 ticks and its submap, every request of node B) is_safe
+   and polygons equal, traversability within 1e-6, area within rtol 1e-5,
+   step layers and masks exact, float layers within 1e-6; the saved bag
+   loads back bit-identical in every float layer. Then node A's timer runs
+   at 50 Hz for 2 s while four client threads query it: every response ok,
+   no failed tick. Wall times per request kind from the client's side;
+9. the tiled multi-process path (``parallel/``), on the one card:
+   (a) the tile bodies on 2 x 2 and 2 x 4 grids of the 336^2 map and of a
+   337 x 335 map with 4% NaN holes, each tile's halo cut from the NaN-padded
+   whole map on the host: kernel 1 and kernel 2 launch once per tile, and the
+   stitched crops are bit-identical in every layer to one whole-map
+   ``fused_update`` and ``dense_circle_field``; kernel 1 with a non-default
+   map origin bit-identical to its plain version with the same frame.
+   (b) world size 1 over ``nccl`` (``initialize_multihost``), config 4:
+   ``sharded_online_tick`` on a 1667 x 1667 map, 133 x 133 submaps, 256
+   paths x 10 poses, 10 ticks on the 5 m circle; after each tick the map
+   state bit-identical to ``update()`` of the merged elevation and the
+   verdicts equal to ``check_circular_paths`` on the same field (the
+   per-sample mode is exact); a merge start off the map raises. (c) config
+   5's tile, a 60 m map at 0.03 m (2000 x 2000): ``scripts/rollouts.py``'s
+   100,000 rollouts x 12 poses, ``max_segment_cells`` 16, through
+   ``check_circular_paths_tiled`` (the per-path mode), and 4,096 of them
+   with its 0.5 x 0.3 m footprint at a random yaw per pose through
+   ``check_polygonal_paths_tiled`` in both modes (per polygon, per row);
+   verdicts equal to the local evaluators on the same planes, traversability
+   within 1e-5, areas within rtol 1e-5. CUDA-event times of every stage and
+   of one whole-map update at each size;
+10. a ``kernels`` JSON line (launches summed over phases 4, 5, 7, 8 and 9),
+   the card line, and the contract line ``{"ok": true, "device": {...}}``
+   last.
 """
 
 from __future__ import annotations
@@ -227,6 +249,7 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
     from traversability_estimation_tpu_torch.utils.rosbag import load_grid_map_bag
 
     MAP_M, N_UPDATES, N_CIRCULAR, N_POLYGONAL = 50.0, 20, 64, 8
+    N_REFEREED = 6  # node A's ticks the CPU nodes answer too
     cfg = dataclasses.replace(
         port.config_from_documents(**port.reference_documents(), resolution=res),
         min_update_rate=0.0)
@@ -258,10 +281,10 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
             fail(f"serving path: {kind} answered {resp}")
         return resp
 
-    def drive(device, tmp):
+    def drive(device, tmp, n_updates):
         """Nodes A and B on `device` behind their servers, every request over
-        the socket. Returns the answers and, per stage, the kernels'
-        launches."""
+        the socket, node A's first `n_updates` update and path requests.
+        Returns the answers and, per stage, the kernels' launches."""
         pose = {"xy": (0.0, 0.0)}
         node_a = port.TraversabilityNode(
             cfg, source=source, robot_pose=lambda: pose["xy"],
@@ -274,7 +297,7 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
                 port.TraversabilityClient(*srv_b.address, timeout=300.0) as cli_b:
             call = timed if record else (lambda kind, fn, *a, **kw: fn(*a, **kw))
             zero_counts()
-            for k, (center, paths) in enumerate(requests):
+            for k, (center, paths) in enumerate(requests[:n_updates]):
                 pose["xy"] = center
                 info = call("update_traversability", cli_a.update_traversability)
                 if not info.get("ok") or info["map_info"]["size"] != [1667, 1667]:
@@ -282,11 +305,12 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
                 out["paths"].append(call(
                     "check_footprint_path (64 circular + 8 polygonal paths x 10 poses)",
                     cli_a.check_footprint_path, paths))
-            stages["node A, 20 x (update, paths)"] = counts()
-            out["submap"] = call(
-                "get_traversability (4 m submap, 2 layers)", cli_a.get_traversability,
-                layers=["traversability", "traversability_step"], position=requests[-1][0],
-                length=(4.0, 4.0))
+                if k == N_REFEREED - 1:
+                    out["submap"] = call(
+                        "get_traversability (4 m submap, 2 layers)", cli_a.get_traversability,
+                        layers=["traversability", "traversability_step"], position=center,
+                        length=(4.0, 4.0))
+            stages["node A, updates and paths"] = counts()
 
             zero_counts()
             out["push"] = call("set_elevation_map (336 x 336)", cli_b.set_elevation_map, terrain)
@@ -386,13 +410,13 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        got, stages = drive("cuda", tmp)
+        got, stages = drive("cuda", tmp, N_UPDATES)
         card_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        want, _ = drive("cpu", tmp)
+        want, _ = drive("cpu", tmp, N_REFEREED)
         cpu_s = time.perf_counter() - t0
 
-    a_counts = stages["node A, 20 x (update, paths)"]
+    a_counts = stages["node A, updates and paths"]
     if a_counts != {"fused_update": N_UPDATES, "circle_field": N_UPDATES}:
         fail(f"serving path: kernel 1 must launch once per update request and kernel 2 once "
              f"per map epoch: {a_counts} over {N_UPDATES} updates")
@@ -436,7 +460,7 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
 
     err, n_safe, n_poly, n_paths = 0.0, 0, 0, 0
     all_safe = []
-    for k, (g, w) in enumerate(zip(got["paths"], want["paths"], strict=True)):
+    for k, (g, w) in enumerate(zip(got["paths"][:N_REFEREED], want["paths"], strict=True)):
         e, s_k, p_k = compare_paths(g, w, f"tick {k}")
         err, n_safe, n_poly = max(err, e), n_safe + s_k, n_poly + p_k
         n_paths += len(w["results"])
@@ -453,7 +477,7 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
     sub_known = int(np.isfinite(got["submap"]["data"]["traversability"]).sum())
     log(f"serving path vs nodes on the CPU ({card_s:.1f} s on the card, {cpu_s:.1f} s on the "
         f"CPU): node A launches {a_counts} over {N_UPDATES} update requests; safe paths per "
-        f"tick {all_safe} of {N_CIRCULAR + N_POLYGONAL}; all {N_UPDATES} ticks: is_safe "
+        f"tick {all_safe} of {N_CIRCULAR + N_POLYGONAL}; ticks 0-{N_REFEREED - 1}: is_safe "
         f"and {n_poly} untraversable polygons equal on {n_paths} paths ({n_safe} safe), path "
         f"trav max diff {err:g}; submap {got['submap']['map_info']['size']} ({sub_known} known "
         f"cells): step layer exact, traversability max diff {sub_err:g}; node B (336 x 336): "
@@ -464,6 +488,351 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
         log(f"serving request ({card_line}): {kind}: {len(ms)} x, wall median "
             f"{np.median(ms):.3f} ms, max {np.max(ms):.3f} ms")
     return {k: sum(st[k] for st in stages.values()) for k in ("fused_update", "circle_field")}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+# phase 9's sizes: (b) config 4's map and submaps, 10 ticks on a 5 m circle of
+# 256 paths; (c) config 5's 60 m tile at 0.03 m, its rollout batch and a
+# polygonal batch
+TILED_MAP_M = 50.0
+TILED_CIRCLE_M = 20.0
+TILED_TICKS = 10
+TILED_TICK_PATHS = 256
+TILED_TILE_CELLS = 2000
+TILED_ROLLOUTS = 100_000
+TILED_POLY_PATHS = 4096
+
+
+def tiled_phase(card_line, res, terrain, cfg, source, zero_counts, counts, timer, kernel_timer,
+                trace):
+    """Phase 9: the tiled multi-process path (``parallel/``) on the one card
+    (see the module docstring). `zero_counts` / `counts`: the kernels' launch
+    counters; `timer(fn, reps)`: ms per call, `kernel_timer(fn, reps)`: device
+    ms per call of a kernel wrapper, `trace(label, fn, reps, top_n)`: where a
+    call's time goes. The sizes are the TILED_* constants. Returns the
+    launches of both kernels over the phase's tile bodies, sharded ticks and
+    tiled queries (the referees' own launches excluded)."""
+    import torch
+    import torch.distributed as dist
+
+    from traversability_estimation_tpu_torch import TraversabilityEstimator
+    from traversability_estimation_tpu_torch.grid.geometry import global_in_map
+    from traversability_estimation_tpu_torch.ops import field_kernel, footprint, update_kernel
+    from traversability_estimation_tpu_torch.parallel import multihost
+    from traversability_estimation_tpu_torch.parallel import sharding as sh
+
+    dev = torch.device("cuda")
+    chain, veto = cfg.chain, cfg.veto
+    radius, offset = 0.3, cfg.footprint.circular_footprint_offset
+    rmax = radius + offset
+    halo, fh = sh.required_halo(chain, veto), sh.field_halo(rmax, res)
+    launches = {"fused_update": 0, "circle_field": 0}
+
+    def tally(want, label):
+        got = counts()
+        if got != want:
+            fail(f"tiled path, {label}: kernel launches {got}, expected {want}")
+        for k in launches:
+            launches[k] += got[k]
+
+    def same(a, b):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.is_floating_point():
+            return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+        return bool(torch.equal(a, b))
+
+    def check_layers(got, want, label):
+        for k, w in want.items():
+            if not same(got[k], w):
+                fail(f"tiled path, {label}: layer {k} differs")
+
+    # (a) the tile bodies, each tile's halo cut from the NaN-padded map on the host
+    maps = {"336x336": terrain,
+            "337x335 4% NaN": synthetic_terrain(337, 335, res, seed=8, nan_frac=0.04)}
+    for label, elev_np in maps.items():
+        H, W = elev_np.shape
+        whole = update_kernel.fused_update(torch.as_tensor(elev_np, device=dev), chain, veto)
+        state = footprint.QueryState(whole["traversability"], whole["traversable_mask"],
+                                     torch.zeros(2, device=dev), res, 0.5)
+        ok_w, tv_w = field_kernel.dense_circle_field(state, rmax, radius)
+        for gx, gy in ((2, 2), (2, 4)):
+            Hp, Wp = -(-H // gx) * gx, -(-W // gy) * gy
+            th, tw = Hp // gx, Wp // gy
+            big = np.full((Hp + 2 * halo, Wp + 2 * halo), np.nan, np.float32)
+            big[halo : halo + H, halo : halo + W] = elev_np
+            tv_big = np.full((Hp + 2 * fh, Wp + 2 * fh), np.nan, np.float32)
+            tv_big[fh : fh + H, fh : fh + W] = whole["traversability"].cpu().numpy()
+            mk_big = np.zeros(tv_big.shape, bool)
+            mk_big[fh : fh + H, fh : fh + W] = whole["traversable_mask"].cpu().numpy()
+            tiles = [(ix, iy) for ix in range(gx) for iy in range(gy)]
+
+            def cut(ix, iy):
+                return torch.as_tensor(
+                    big[ix * th : (ix + 1) * th + 2 * halo, iy * tw : (iy + 1) * tw + 2 * halo],
+                    device=dev), ((ix * th - halo, iy * tw - halo), (H, W))
+
+            got = {k: torch.empty((Hp, Wp), dtype=v.dtype, device=dev) for k, v in whole.items()}
+            ok_t = torch.empty((Hp, Wp), dtype=torch.bool, device=dev)
+            tv_t = torch.empty((Hp, Wp), dtype=torch.float32, device=dev)
+            zero_counts()
+            for ix, iy in tiles:
+                tile, (origin, gshape) = cut(ix, iy)
+                for k, v in sh.tile_update(tile, chain, veto, halo, origin, gshape).items():
+                    got[k][ix * th : (ix + 1) * th, iy * tw : (iy + 1) * tw] = v
+            tally({"fused_update": len(tiles), "circle_field": 0}, f"{label} {gx}x{gy} update")
+            zero_counts()
+            for ix, iy in tiles:
+                win = (slice(ix * th, (ix + 1) * th + 2 * fh),
+                       slice(iy * tw, (iy + 1) * tw + 2 * fh))
+                o, t = sh.tile_circle_field(
+                    torch.as_tensor(tv_big[win], device=dev),
+                    torch.as_tensor(mk_big[win], device=dev),
+                    fh, (ix * th - fh, iy * tw - fh), (H, W), rmax, radius, res)
+                ok_t[ix * th : (ix + 1) * th, iy * tw : (iy + 1) * tw] = o
+                tv_t[ix * th : (ix + 1) * th, iy * tw : (iy + 1) * tw] = t
+            tally({"fused_update": 0, "circle_field": len(tiles)}, f"{label} {gx}x{gy} field")
+            check_layers({k: v[:H, :W] for k, v in got.items()}, whole,
+                         f"{label} {gx}x{gy} stitched tiles vs the whole map")
+            if not (same(ok_t[:H, :W], ok_w) and same(tv_t[:H, :W], tv_w)):
+                fail(f"tiled path, {label} {gx}x{gy}: the stitched circle field differs")
+            # kernel 1 with a map origin against its plain version with the same
+            # frame: the corner tile (its halo leaves the map) and the last one
+            # (it holds the padding that makes the map divide the grid)
+            for ix, iy in ((0, 0), (gx - 1, gy - 1)):
+                tile, frame = cut(ix, iy)
+                check_layers(update_kernel.fused_update(tile, chain, veto, *frame),
+                             update_kernel.fused_update_plain(tile, chain, veto, *frame),
+                             f"{label} tile ({ix}, {iy}) of {gx}x{gy}, kernel 1 vs plain")
+            # both kernels at the shapes of the last tile's bodies
+            tile, frame = cut(gx - 1, gy - 1)
+            win = (slice(Hp - th, Hp + 2 * fh), slice(Wp - tw, Wp + 2 * fh))
+            state_t = footprint.QueryState(
+                torch.as_tensor(tv_big[win], device=dev), torch.as_tensor(mk_big[win], device=dev),
+                torch.zeros(2, device=dev), res, 0.5)
+            in_map_t = global_in_map(state_t.shape, (Hp - th - fh, Wp - tw - fh), (H, W), dev)
+            k1_ms = kernel_timer(lambda: update_kernel.fused_update(tile, chain, veto, *frame), 50)
+            k2_ms = kernel_timer(
+                lambda: field_kernel.dense_circle_field(state_t, rmax, radius, in_map_t), 50)
+            log(f"tiled path (a) {label} on a {gx}x{gy} grid (tiles {th}x{tw}, halo {halo}, field "
+                f"halo {fh}): kernel 1 and kernel 2 launched once per tile; the stitched crops "
+                f"bit-identical in every layer to the whole map's kernel 1 and kernel 2; kernel 1 "
+                f"at origins {frame[0]} and (-{halo}, -{halo}) bit-identical to its plain version; "
+                f"({card_line}) kernel 1 on the {tuple(tile.shape)} padded tile {k1_ms:.4f} ms, "
+                f"kernel 2 on the {state_t.shape} padded tile {k2_ms:.4f} ms device time")
+
+    # (b) world size 1 over nccl: the sharded online tick at config 4's width
+    grid = multihost.initialize_multihost(f"localhost:{free_port()}", 1, 0, device=dev)
+    if (grid.gx, grid.gy) != (1, 1) or dist.get_backend() != sh.backend_for(dev):
+        fail(f"initialize_multihost: grid {grid.gx}x{grid.gy} over {dist.get_backend()}")
+
+    def tile_kernel_ms(elev_t, layers_t):
+        """Device ms of kernel 1 and kernel 2 on the halo-padded tiles of
+        the world-size-1 grid, as the tile bodies launch them."""
+        gshape = tuple(elev_t.shape)
+        pt = sh.halo_pad(elev_t, halo, float("nan"), grid)
+        pf = sh.halo_pad(torch.stack([layers_t["traversability"],
+                                      layers_t["traversable_mask"].to(torch.float32)]),
+                         fh, (float("nan"), 0.0), grid)
+        st = footprint.QueryState(pf[0].contiguous(), pf[1] > 0.5, torch.zeros(2, device=dev),
+                                  res, 0.5)
+        im = global_in_map(st.shape, (-fh, -fh), gshape, dev)
+        return {
+            f"kernel 1 on the {tuple(pt.shape)} padded tile": kernel_timer(
+                lambda: update_kernel.fused_update(pt, chain, veto, (-halo, -halo), gshape), 20),
+            f"kernel 2 on the {st.shape} padded tile": kernel_timer(
+                lambda: field_kernel.dense_circle_field(st, rmax, radius, im), 20),
+        }
+    n_map = int(round(TILED_MAP_M / res))
+    # a circle of TILED_CIRCLE_M / 4
+    near = online_ticks(source, TILED_TICKS, TILED_CIRCLE_M, 4.0, TILED_TICK_PATHS)
+    elev = torch.full((n_map, n_map), float("nan"), device=dev)
+    ref = TraversabilityEstimator(cfg, device=dev)
+    tick_ms, n_safe = [], []
+    def sharded_tick(elev, patch, start, poses, n_poses):
+        return sh.sharded_online_tick(elev, patch, start, poses, n_poses, grid=grid,
+                                      chain_cfg=chain, veto_cfg=veto, radius=radius,
+                                      offset=offset, resolution=res, max_segment_cells=16)
+
+    for k, (patch, (cx, cy), poses, n_poses) in enumerate(near):
+        ph, pw = patch.shape
+        start = (int(np.floor((n_map * res / 2 - (cx + ph * res / 2)) / res)),
+                 int(np.floor((n_map * res / 2 - (cy + pw * res / 2)) / res)))
+        merged = elev.clone()
+        merged[start[0] : start[0] + ph, start[1] : start[1] + pw] = torch.as_tensor(
+            patch, device=dev)
+        t0 = time.perf_counter()
+        zero_counts()
+        elev, layers, safe, trav = sharded_tick(elev, patch, start, poses, n_poses)
+        safe, trav = safe.cpu(), trav.cpu()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        tally({"fused_update": 1, "circle_field": 1}, f"sharded tick {k}")
+        ref.update(merged)
+        if not same(elev, merged):
+            fail(f"sharded tick {k}: the merged elevation differs")
+        check_layers(layers, {key: ref.traversability_map[key] for key in layers},
+                     f"sharded tick {k} vs update() of the merged elevation")
+        field = field_kernel.dense_circle_field(ref.query_state, rmax, radius)
+        safe_l, trav_l = footprint.check_circular_paths(
+            ref.query_state, poses, n_poses, radius, offset, 16, field, False)
+        if not (same(safe, safe_l.cpu()) and same(trav, trav_l.cpu())):
+            fail(f"sharded tick {k}: verdicts differ from check_circular_paths on the same field "
+                 f"({int((safe != safe_l.cpu()).sum())} paths)")
+        n_safe.append(int(safe.sum()))
+    if not 0 < sum(n_safe) < TILED_TICKS * TILED_TICK_PATHS:
+        fail(f"sharded ticks: the verdicts are all alike: {n_safe}")
+    try:
+        sharded_tick(elev, patch, (n_map - ph // 2, 0), poses, n_poses)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("sharded tick: a merge start off the map did not raise")
+    log(f"tiled path (b) sharded_online_tick, world size 1 over {dist.get_backend()}, "
+        f"{n_map}x{n_map} map, {ph}x{pw} submaps, {TILED_TICK_PATHS} paths x 10 poses, "
+        f"{TILED_TICKS} ticks on a {TILED_CIRCLE_M / 4:g} m circle: kernel 1 and kernel 2 once "
+        f"per tick; after every tick "
+        f"the map state bit-identical to update() of the merged elevation and the verdicts "
+        f"({n_safe} safe) bit-identical to check_circular_paths on the same field; a merge off "
+        f"the map raises ({refused!r})")
+    stage_ms = {
+        "tick": timer(lambda: sharded_tick(elev, patch, start, poses, n_poses), 10),
+        "sharded_update (halo pad + kernel 1 + crop)": timer(
+            lambda: sh.sharded_update(elev, chain, veto, grid), 10),
+        "whole-map fused_update": timer(lambda: update_kernel.fused_update(elev, chain, veto), 10),
+        "sharded_circle_field (halo pad + kernel 2 + crop)": timer(
+            lambda: sh.sharded_circle_field(layers, grid, rmax, radius, res), 10),
+    }
+    stage_ms.update(tile_kernel_ms(elev, layers))
+    ok_f, tv_f = sh.sharded_circle_field(layers, grid, rmax, radius, res)
+    poses_d = torch.as_tensor(poses, device=dev)
+    n_d = torch.as_tensor(n_poses, device=dev)
+    stage_ms["check_circular_paths_tiled (per sample)"] = timer(
+        lambda: sh.check_circular_paths_tiled(ok_f, tv_f, poses_d, n_d, grid, (0.0, 0.0), res, 16),
+        20)
+    log(f"tiled path (b) times ({card_line}): tick wall to fetched verdicts, ticks 1-"
+        f"{TILED_TICKS - 1}: median {np.median(tick_ms[1:]):.4f} ms, "
+        f"max {np.max(tick_ms[1:]):.4f} ms; "
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items()))
+    trace("sharded tick", lambda: sharded_tick(elev, patch, start, poses, n_poses)[2].cpu(), 5, 8)
+
+    # (c) config 5's tile: the 60 m map any process of the grid owns
+    n5 = TILED_TILE_CELLS
+    elev5 = torch.as_tensor(synthetic_terrain(n5, n5, res, seed=5), device=dev)
+    zero_counts()
+    layers5 = sh.sharded_update(elev5, chain, veto, grid)
+    ok5, tv5 = sh.sharded_circle_field(layers5, grid, rmax, radius, res)
+    tally({"fused_update": 1, "circle_field": 1}, "config 5 update and field")
+    state5 = footprint.QueryState(layers5["traversability"], layers5["traversable_mask"],
+                                  torch.zeros(2, device=dev), res, 0.5)
+    # scripts/rollouts.py's batch: every rollout from the traversable cell
+    # nearest the map's centre (a corner of the terrain's plateau)
+    ii, jj = np.nonzero(ok5.cpu().numpy())
+    kc = int(np.argmin((ii - n5 / 2) ** 2 + (jj - n5 / 2) ** 2))
+    robot = np.array([n5 * res / 2 - (ii[kc] + 0.5) * res, n5 * res / 2 - (jj[kc] + 0.5) * res])
+    rng = np.random.default_rng(5)
+    N5 = 12
+    headings = rng.uniform(0, 2 * np.pi, TILED_ROLLOUTS)
+    base = np.stack([np.cos(headings), np.sin(headings)], -1) * 0.25
+    steps = base[:, None, :] + rng.uniform(-0.08, 0.08, (TILED_ROLLOUTS, N5 - 1, 2))
+    poses5 = np.concatenate([np.broadcast_to(robot, (TILED_ROLLOUTS, 1, 2)),
+                             robot + np.cumsum(steps, 1)], 1).astype(np.float32)
+    poses5_d = torch.as_tensor(poses5, device=dev)
+    n5_d = torch.full((TILED_ROLLOUTS,), N5, dtype=torch.int32, device=dev)
+    samples = TILED_ROLLOUTS * (N5 - 1) * 4
+    if samples < sh._PATH_REDUCE_SAMPLES:
+        fail(f"config 5: {samples} samples do not reach the per-path mode")
+
+    def circular_tiled():
+        return sh.check_circular_paths_tiled(ok5, tv5, poses5_d, n5_d, grid, (0.0, 0.0), res, 16)
+
+    def circular_local():
+        return footprint.check_circular_paths(
+            state5, poses5_d, n5_d, radius, offset, 16, (ok5, tv5), False)
+
+    zero_counts()
+    safe5, trav5 = circular_tiled()
+    tally({"fused_update": 0, "circle_field": 0}, "config 5 circular paths")
+    safe_l, trav_l = circular_local()
+    if not same(safe5, safe_l):
+        fail(f"config 5: tiled circular verdicts differ on {int((safe5 != safe_l).sum())} paths")
+    c_err = float((trav5 - trav_l).abs().max())
+    if c_err > 1e-5:
+        fail(f"config 5: tiled circular traversability differs by {c_err:g}")
+
+    fp5 = np.float32([[0.25, 0.15], [0.25, -0.15], [-0.25, -0.15], [-0.25, 0.15]])
+    pos3 = torch.as_tensor(np.concatenate(
+        [poses5[:TILED_POLY_PATHS], np.zeros((TILED_POLY_PATHS, N5, 1), np.float32)], -1),
+        device=dev)
+    yaw = rng.uniform(0, 2 * np.pi, (TILED_POLY_PATHS, N5))
+    quats = np.zeros((TILED_POLY_PATHS, N5, 4), np.float32)
+    quats[..., 2], quats[..., 3] = np.sin(yaw / 2), np.cos(yaw / 2)
+    quats = torch.as_tensor(quats, device=dev)
+    seg = float(np.linalg.norm(np.diff(poses5[:TILED_POLY_PATHS], axis=1), axis=-1).max())
+    window = footprint.polygon_window_cells(fp5, seg, res, False)
+    n5p = n5_d[:TILED_POLY_PATHS]
+
+    def polygonal_tiled(rows):
+        saved = sh._PATH_REDUCE_SAMPLES
+        if rows:  # the per-row sums, as below the threshold
+            sh._PATH_REDUCE_SAMPLES = 1 << 62
+        try:
+            return sh.check_polygonal_paths_tiled(
+                layers5, pos3, quats, n5p, fp5, grid, window, (0.0, 0.0), res, False, 0.5)
+        finally:
+            sh._PATH_REDUCE_SAMPLES = saved
+
+    def polygonal_local():
+        return footprint.check_polygonal_paths(state5, pos3, quats, n5p, fp5, window, False)
+
+    want = polygonal_local()
+    poly_err = {}
+    for mode, rows in (("per polygon", False), ("per row", True)):
+        got5 = polygonal_tiled(rows)
+        if not same(got5[0], want[0]):
+            fail(f"config 5: tiled polygonal verdicts ({mode}) differ on "
+                 f"{int((got5[0] != want[0]).sum())} paths")
+        t_err = float((got5[1] - want[1]).abs().max())
+        a_err = float(((got5[2] - want[2]).abs() - 1e-5 * want[2].abs()).max())
+        if t_err > 1e-5 or a_err > 1e-7:
+            fail(f"config 5: tiled polygonal ({mode}) traversability off by {t_err:g}, area "
+                 f"beyond rtol 1e-5 by {a_err:g}")
+        poly_err[mode] = t_err
+    log(f"tiled path (c) config 5's tile, {n5}x{n5}, world size 1: kernel 1 and kernel 2 once;"
+        f" {TILED_ROLLOUTS} rollouts x {N5} poses through check_circular_paths_tiled "
+        f"(per-path mode, {samples} samples): verdicts equal to check_circular_paths "
+        f"({int(safe5.sum())} safe), trav max diff {c_err:g}; {TILED_POLY_PATHS} paths x {N5} "
+        f"of the "
+        f"0.5 x 0.3 m footprint with random yaw (window {window}) through "
+        f"check_polygonal_paths_tiled: verdicts ({int(want[0].sum())} safe) and areas equal to "
+        f"check_polygonal_paths within rtol 1e-5, trav max diff "
+        + ", ".join(f"{k} {v:g}" for k, v in poly_err.items()))
+    times5 = {
+        "sharded_update": timer(lambda: sh.sharded_update(elev5, chain, veto, grid), 10),
+        "whole-map fused_update": timer(lambda: update_kernel.fused_update(elev5, chain, veto), 10),
+        "sharded_circle_field": timer(
+            lambda: sh.sharded_circle_field(layers5, grid, rmax, radius, res), 10),
+        "whole-map dense_circle_field": timer(
+            lambda: field_kernel.dense_circle_field(state5, rmax, radius), 10),
+        "check_circular_paths_tiled (per path)": timer(circular_tiled, 5),
+        "check_circular_paths (local)": timer(circular_local, 5),
+        "check_polygonal_paths_tiled (per polygon)": timer(lambda: polygonal_tiled(False), 3),
+        "check_polygonal_paths_tiled (per row)": timer(lambda: polygonal_tiled(True), 3),
+        "check_polygonal_paths (local)": timer(polygonal_local, 3),
+        **tile_kernel_ms(elev5, layers5),
+    }
+    log(f"tiled path (c) times ({card_line}): "
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in times5.items())
+        + f" -> {TILED_ROLLOUTS * N5 / times5['check_circular_paths_tiled (per path)'] * 1e3:.4g} "
+        "pose-checks/s tiled")
+    dist.destroy_process_group()
+    return launches
 
 
 def main() -> None:
@@ -1305,7 +1674,13 @@ def main() -> None:
     serve_launches = serving_phase(
         card_line, res, terrain, rect, source, zero_counts, counts)
 
-    # ---- 9. report --------------------------------------------------------
+    # ---- 9. the tiled multi-process path ------------------------------------
+    t0 = time.perf_counter()
+    tiled_launches = tiled_phase(card_line, res, terrain, cfg, source, zero_counts, counts,
+                                 cuda_ms, device_ms, trace)
+    log(f"tiled path: {time.perf_counter() - t0:.1f} s wall, launches {tiled_launches}")
+
+    # ---- 10. report -------------------------------------------------------
     b1e, _ = bound(update_kernel.kernel_bytes(ref_cfg.chain, ref_cfg.veto, H, W),
                    update_kernel.kernel_operations(ref_cfg.chain, ref_cfg.veto, H, W))
     b1, by1 = bound(update_kernel.kernel_bytes(cfg.chain, cfg.veto, H, W),
@@ -1316,7 +1691,8 @@ def main() -> None:
          "source": "traversability_estimation_tpu_torch/csrc/fused_update.cu",
          "replaces": "traversability_estimation_tpu/ops/pallas_chain.py:117",
          "launches": launches["fused_update"] + poly_launches["fused_update"]
-         + online_launches["fused_update"] + serve_launches["fused_update"],
+         + online_launches["fused_update"] + serve_launches["fused_update"]
+         + tiled_launches["fused_update"],
          "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": b1, "bound_by": by1, "library_ms": None,
          # the same kernel under the reference fusion expression, at 336^2 and
@@ -1328,7 +1704,8 @@ def main() -> None:
          "source": "traversability_estimation_tpu_torch/csrc/circle_field.cu",
          "replaces": "traversability_estimation_tpu/ops/pallas_field.py:125",
          "launches": launches["circle_field"] + poly_launches["circle_field"]
-         + online_launches["circle_field"] + serve_launches["circle_field"],
+         + online_launches["circle_field"] + serve_launches["circle_field"]
+         + tiled_launches["circle_field"],
          "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": b2, "bound_by": by2, "library_ms": None},
     ]

@@ -14,6 +14,7 @@ engines sit that far from the float64 NumPy oracle there too).
 import fractions
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -189,3 +190,21 @@ def test_reference_expression_equals_the_weighted_sum_within_an_ulp(elevation):
     fused = tf.run_chain(elev, tf.ChainConfig(resolution=RES, fusion_expression=expression))
     summed = tf.run_chain(elev, tf.ChainConfig(resolution=RES))
     _assert_layer(summed["traversability"].numpy(), fused["traversability"].numpy(), 2e-7, "fused")
+
+
+def test_smallest_eigpair_sym3_matches_jax():
+    """The matrix-form eigensolver: the JAX function's accuracy gate
+    (tests/test_ops_chain.py) and its values within float32 rounding."""
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((512, 3, 3)).astype(np.float32)
+    A = A + np.swapaxes(A, -1, -2)
+    emin, emid, v = (t.numpy() for t in tf.smallest_eigpair_sym3(torch.from_numpy(A)))
+    w, V = np.linalg.eigh(A)
+    assert np.abs(emin - w[:, 0]).max() < 1e-5 * np.abs(w).max()
+    assert np.abs(np.sum(v * V[:, :, 0], axis=-1)).min() > 1.0 - 1e-5
+    emin_j, emid_j, v_j = (np.asarray(a) for a in jax.jit(jf.smallest_eigpair_sym3)(jnp.asarray(A)))
+    scale = np.abs(w).max()
+    np.testing.assert_allclose(emin, emin_j, rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(emid, emid_j, rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(v, v_j, rtol=0, atol=1e-5)
+    assert v.shape == (512, 3)

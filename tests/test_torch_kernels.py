@@ -63,17 +63,18 @@ def _same(a, b):
     return bool(torch.equal(a, b))
 
 
-def _check_update(elev, check_roughness, ulps=0, **chain_kw):
+def _check_update(elev, check_roughness, ulps=0, frame=(), **chain_kw):
     """Kernel 1 against the plain version: one launch, every layer
     bit-identical; with `ulps`, the fused layer within that many float32
-    steps instead."""
+    steps instead. `frame`: (origin, global shape) of the array in a larger
+    map, given to both."""
     cfg = EstimatorConfig(
         resolution=RES, chain=ChainConfig(resolution=RES, **chain_kw),
         footprint=FootprintConfig(verify_roughness_footprint=check_roughness),
     )
     before = update_kernel.fused_update.launches
-    got = update_kernel.fused_update(elev, cfg.chain, cfg.veto)
-    want = update_kernel.fused_update_plain(elev, cfg.chain, cfg.veto)
+    got = update_kernel.fused_update(elev, cfg.chain, cfg.veto, *frame)
+    want = update_kernel.fused_update_plain(elev, cfg.chain, cfg.veto, *frame)
     assert update_kernel.fused_update.launches == before + 1
     assert set(got) == set(want)
     for k in want:
@@ -115,6 +116,24 @@ def test_fused_update_kernel_edge_shapes(cuda, shape, check_roughness):
     rows, cols, seed, nan_frac = shape
     _check_update(torch.as_tensor(_terrain(rows, cols, seed, nan_frac), device=cuda),
                   check_roughness)
+
+
+# (origin, global shape) of a 90 x 120 array: a tile's padded block whose
+# halo leaves the map at the top left; an interior block; a block past the
+# map's bottom right (the padding that makes a map divide the process grid);
+# a frame that cuts the array on every side
+FRAMES = [((-11, -11), (300, 300)), ((40, 57), (400, 400)), ((250, 310), (330, 415)),
+          ((-5, 9), (70, 100))]
+
+
+@pytest.mark.parametrize("check_roughness", [False, True])
+@pytest.mark.parametrize("frame", FRAMES, ids=lambda f: f"{f[0][0]}_{f[0][1]}_in_{f[1][0]}x{f[1][1]}")
+def test_fused_update_kernel_with_a_map_origin(cuda, frame, check_roughness):
+    """Kernel 1 placed in a larger map (the tile body of the tiled update):
+    cells beyond the map hold no elevation and end no walk; every layer
+    bit-identical to the plain version given the same frame."""
+    elev = torch.as_tensor(_terrain(90, 120, seed=13, nan_frac=0.04), device=cuda)
+    _check_update(elev, check_roughness, frame=frame)
 
 
 # name -> (expression, compute_roughness, float32 steps allowed in the fused layer)

@@ -368,7 +368,11 @@ def test_clients_and_servers_cross_the_packages(tmp_path):
                 node = JaxNode(jcfg, source=_source(seed=7, cls=JaxArraySource))
                 srv = JaxServer(node)
             with srv:
-                with client_cls(*srv.address, timeout=120.0) as cli:
+                # the JAX server compiles each service at its first request
+                # (its first traversability_footprint: 22 s alone, 60-120 s on
+                # a loaded host): no request may time out before the whole
+                # test suite's own limit does
+                with client_cls(*srv.address, timeout=1500.0) as cli:
                     exchanges[server_name, client_name] = _drive(
                         cli, tmp_path, f"{server_name}_{client_name}")
     want = exchanges["jax", "jax"]

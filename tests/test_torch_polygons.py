@@ -313,3 +313,70 @@ def test_dense_footprint_services_match_jax(engines):
     want = jest.traversability_footprint_circle(radius=0.2, offset=0.1)["traversability_footprint"]
     np.testing.assert_array_equal(got.numpy() > 0, np.asarray(want) > 0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("rotated", [False, True], ids=["identity", "rotated"])
+def test_window_buckets_match_jax(rotated):
+    """per_path_window_cells and plan_window_buckets: the JAX host plan,
+    equal in every integer."""
+    for seed, footprint in ((31, RECT), (32, HEXAGON)):
+        pos3, quats, _ = _path_batch(seed=seed, P=24, N=9, rotated=rotated)
+        np.testing.assert_array_equal(
+            tfp.per_path_window_cells(footprint, pos3, quats, RES),
+            jfp.per_path_window_cells(footprint, pos3, quats, RES))
+        for n_buckets in (1, 2, 3):
+            assert tfp.plan_window_buckets(footprint, pos3, quats, RES, n_buckets) == \
+                jfp.plan_window_buckets(footprint, pos3, quats, RES, n_buckets)
+
+
+@pytest.mark.parametrize("conservative", [False, True])
+def test_bucketed_paths_match_jax_and_the_single_window(engines, conservative):
+    """check_polygonal_paths_bucketed: against the port's single-window
+    grouped call as tests/test_footprint.py holds JAX's (verdicts and areas
+    identical, traversability within 1e-6), and for the translating sweep
+    against the JAX bucketed evaluator (the port's polygonal tolerances;
+    JAX compiles one grouped program per bucket, and the conservative sweep
+    of the grouped evaluator is held to JAX's by
+    test_polygonal_paths_match_jax)."""
+    jest, test = engines
+    pos3, quats, n_poses = _path_batch(seed=33, P=20, N=5, rotated=True)
+    window = tfp.path_group_window_exact(RECT, pos3, quats, RES)
+    ref = tfp.check_polygonal_paths_grouped(
+        test.query_state, pos3, quats, n_poses, RECT, window, conservative)
+    for n_buckets in (2, 3):
+        plan = tfp.plan_window_buckets(RECT, pos3, quats, RES, n_buckets)
+        assert len(set(plan[1])) > 1  # the buckets' windows differ
+        got = tfp.check_polygonal_paths_bucketed(
+            test.query_state, pos3, quats, n_poses, RECT, plan, conservative)
+        np.testing.assert_array_equal(got[0].numpy(), ref[0].numpy())
+        np.testing.assert_allclose(got[1].numpy(), ref[1].numpy(), rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(got[2].numpy(), ref[2].numpy())
+    if conservative:
+        return
+    plan = tfp.plan_window_buckets(RECT, pos3, quats, RES, 2)
+    out_j = jfp.check_polygonal_paths_bucketed(
+        jest._query_state, jnp.asarray(pos3), jnp.asarray(quats), jnp.asarray(n_poses),
+        jnp.asarray(RECT), plan, conservative)
+    _assert_paths_equal(tfp.check_polygonal_paths_bucketed(
+        test.query_state, pos3, quats, n_poses, RECT, plan, conservative), out_j)
+
+
+def test_polygon_prefix_planes_match_jax(engines):
+    """The packed count prefix exact; the float prefix within float32
+    rounding of the running sums (the two scans add in other orders); with
+    an in-map plane the cells outside count as neither pass nor fail."""
+    jest, test = engines
+    counts_j, tv_j = jax.jit(jfp.polygon_prefix_planes)(jest._query_state)
+    counts_t, tv_t = tfp.polygon_prefix_planes(test.query_state)
+    np.testing.assert_array_equal(counts_t.numpy(), np.asarray(counts_j))
+    np.testing.assert_allclose(tv_t.numpy(), np.asarray(tv_j), rtol=1e-6, atol=1e-5)
+    qs = test.query_state
+    in_map = torch.from_numpy(np.random.default_rng(3).random(qs.shape) > 0.2)
+    counts_m, tv_m = tfp.polygon_prefix_planes(qs, in_map)
+    ok = qs.traversable_mask & in_map
+    cells = torch.diff(counts_m, dim=1)
+    np.testing.assert_array_equal((cells % 65536).numpy(), ok.numpy())
+    np.testing.assert_array_equal((cells // 65536).numpy(), (~qs.traversable_mask & in_map).numpy())
+    masked = tfp.QueryState(qs.traversability, ok, qs.position, RES, qs.default_traversability)
+    np.testing.assert_array_equal(tv_m.numpy(), tfp.polygon_prefix_planes(masked)[1].numpy())
+

@@ -102,3 +102,22 @@ def test_required_halo_and_kernel_reaches(max_gap_width):
     cnt = [(p.cnt[2 * k], p.cnt[2 * k + 1]) for k in range(p.n_cnt)]
     assert max(max(abs(a), abs(b)) for a, b in cand) == p.r_ray
     assert max(max(abs(a), abs(b)) for a, b in cnt) <= p.r_mid
+
+
+@pytest.mark.parametrize("with_in_map", [False, True])
+def test_step_veto_ok_v1_matches_jax_and_the_folded_form(layers, with_in_map):
+    """The port's bool-plane step veto: cell for cell the JAX package's
+    step_veto_ok_v1 and the port's sentinel-folded step_veto_ok."""
+    in_map = np.random.default_rng(5).random(layers["elevation"].shape) > 0.15
+    cfg = dict(resolution=RES, critical_step_height=0.08)
+    im = in_map if with_in_map else None
+    ref = jax.jit(jv.step_veto_ok_v1, static_argnums=(2,))(
+        jnp.asarray(layers["elevation"]), jnp.asarray(layers["traversability_step"]),
+        jv.VetoConfig(**cfg), None if im is None else jnp.asarray(im))
+    args = (torch.from_numpy(layers["elevation"].copy()),
+            torch.from_numpy(layers["traversability_step"].copy()), tv.VetoConfig(**cfg),
+            None if im is None else torch.from_numpy(im))
+    out = tv.step_veto_ok_v1(*args)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(out.numpy(), tv.step_veto_ok(*args).numpy())
+    assert not out.all()

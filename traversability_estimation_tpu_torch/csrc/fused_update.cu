@@ -35,7 +35,7 @@
 //      candidate-sector combine and the stores of every plane the
 //      estimator keeps (the *_ok planes, traversable_mask, *_footprint).
 // Stencil offsets become linear shared-memory deltas once per block, so
-// every tap is one table read and one load. FusedParams (3,912 bytes, so that
+// every tap is one table read and one load. FusedParams (3,928 bytes, so that
 // each kernel's arguments stay under 4 KB) is a __grid_constant__ kernel
 // parameter: no copy before the launch. The launch geometry is computed on the
 // host by ops/update_kernel.py::launch_plan and checked here.
@@ -94,7 +94,18 @@ struct FusedParams {
   float prog_arg[MAX_PROG];   // a constant, or a layer: 0 slope, 1 step, 2 roughness
   float slope_crit, slope_rcp, step_crit, step_rcp, ccn_rcp, rough_crit, rough_rcp;
   float veto_crit, slope_ncrit, rough_ncrit;
+  // the map's global frame: array cell (i, j) is global cell (i + gi0, j + gj0)
+  // of a (gh, gw) map. Cells beyond it are out of map: no elevation, and the
+  // step veto's walk ends there (a tile's halo beyond the global map, or the
+  // padding that makes a map divide the process grid). (0, 0, H, W): the
+  // array is the map.
+  int gi0, gj0, gh, gw;
 };
+
+// Is array cell (i, j) inside the global map?
+__device__ __forceinline__ bool in_global(const FusedParams& p, int i, int j) {
+  return (unsigned)(i + p.gi0) < (unsigned)p.gh && (unsigned)(j + p.gj0) < (unsigned)p.gw;
+}
 
 // float32 sentinels of the step filter (+/-3e38) and the acos polynomial,
 // as exact float32 values
@@ -481,7 +492,7 @@ fused_layers_kernel(const __grid_constant__ FusedParams p, const float* __restri
     for (int c = tx; c < EA; c += K1_TILE_W) {
       const int gj = j0 - halo + c;
       float w = NAN;
-      if (gi >= 0 && gi < H && gj >= 0 && gj < W) {
+      if (gi >= 0 && gi < H && gj >= 0 && gj < W && in_global(p, gi, gj)) {
         const float e = elevation[(long)gi * W + gj];
         w = isfinite(e) ? e : -INFINITY;
       }
@@ -506,7 +517,7 @@ fused_layers_kernel(const __grid_constant__ FusedParams p, const float* __restri
   slope_out[g] = l.slope;
   step_out[g] = l.step;
   if (p.compute_roughness) rough_out[g] = l.rough;
-  walk_out[g] = (uint8_t)walk_bits(p, ec, elevation[g], t_dir);
+  walk_out[g] = (uint8_t)walk_bits(p, ec, in_global(p, gi, gj) ? elevation[g] : NAN, t_dir);
 }
 
 __global__ void __launch_bounds__(K1V_THREADS)
@@ -551,7 +562,7 @@ fused_veto_kernel(const __grid_constant__ FusedParams p, const float* __restrict
       if (gi >= 0 && gi < H && gj >= 0 && gj < W) {
         const long g = (long)gi * W + gj;
         const float st = step[g];
-        e = elevation[g];
+        e = in_global(p, gi, gj) ? elevation[g] : NAN;
         se = cand_elev(e, st);
         f = (slope[g] == 0.0f ? 1 : 0) | (p.check_roughness && rough[g] == 0.0f ? 2 : 0) |
             (st == 0.0f ? 4 : 0);

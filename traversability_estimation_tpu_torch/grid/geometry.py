@@ -8,7 +8,8 @@ Bresenham walk (torch).
 - line   -> Bresenham in closed form over a whole batch of endpoint pairs,
   and for one pair on the host;
 - the host's 20-gon circle outline and monotone-chain convex hull, for the
-  untraversable-polygon extraction.
+  untraversable-polygon extraction;
+- the in-map plane of an array placed in a larger map (a tile with its halo).
 """
 
 from __future__ import annotations
@@ -19,6 +20,17 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+
+def global_in_map(shape, origin, global_shape, device=None) -> torch.Tensor:
+    """(H, W) bool: which cells of an (H, W) array whose cell (0, 0) is map
+    cell `origin` lie inside the `global_shape` map."""
+    H, W = shape
+    gi = torch.arange(H, device=device) + int(origin[0])
+    gj = torch.arange(W, device=device) + int(origin[1])
+    rows = (gi >= 0) & (gi < int(global_shape[0]))
+    cols = (gj >= 0) & (gj < int(global_shape[1]))
+    return rows[:, None] & cols[None, :]
 
 
 @functools.lru_cache(maxsize=None)

@@ -197,6 +197,18 @@ def smallest_eigvec_planes(c00, c01, c02, c11, c12, c22, sweeps: int = 4):
     return pick(0), pick(1), pick(2), eig_min, eig_mid
 
 
+def smallest_eigpair_sym3(A: torch.Tensor, sweeps: int = 4):
+    """Matrix-form wrapper over ``smallest_eigvec_planes`` for (..., 3, 3)
+    symmetric inputs (the upper triangle is read); returns (eig_min,
+    eig_mid, v_min (..., 3))."""
+    vx, vy, vz, eig_min, eig_mid = smallest_eigvec_planes(
+        A[..., 0, 0], A[..., 0, 1], A[..., 0, 2],
+        A[..., 1, 1], A[..., 1, 2], A[..., 2, 2],
+        sweeps=sweeps,
+    )
+    return eig_min, eig_mid, torch.stack([vx, vy, vz], dim=-1)
+
+
 def moment_planes(
     elevation: torch.Tensor, resolution: float, radius: float
 ) -> Tuple[torch.Tensor, ...]:

@@ -57,16 +57,24 @@ class QueryState:
         return self.traversability.device
 
 
+def map_origin(shape, position: torch.Tensor, resolution: float) -> torch.Tensor:
+    """P0 of a `shape` map centred at `position` (2,) f32: index i covers x
+    in (P0 - (i+1) res, P0 - i res]."""
+    size = torch.tensor(tuple(shape), dtype=torch.float32, device=position.device)
+    return position + size * resolution * 0.5
+
+
 def _origin_offset(state: QueryState) -> torch.Tensor:
-    rows, cols = state.shape
-    size = torch.tensor([rows, cols], dtype=torch.float32, device=state.device)
-    half = size * state.resolution * 0.5
-    return state.position + half  # index i covers x in (P0-(i+1)res, P0-i*res]
+    return map_origin(state.shape, state.position, state.resolution)
+
+
+def index_from_origin(p0: torch.Tensor, xy: torch.Tensor, resolution: float) -> torch.Tensor:
+    """Integer cell indices (..., 2) of positions (..., 2) below origin P0."""
+    return torch.floor(mul_rcp(p0 - xy, resolution)).to(torch.int32)
 
 
 def _index_of(state: QueryState, xy: torch.Tensor) -> torch.Tensor:
-    p0 = _origin_offset(state)
-    return torch.floor(mul_rcp(p0 - xy, state.resolution)).to(torch.int32)
+    return index_from_origin(_origin_offset(state), xy, state.resolution)
 
 
 def _position_of(state: QueryState, idx: torch.Tensor) -> torch.Tensor:
@@ -610,6 +618,37 @@ def check_polygons(
     return ok, trav, n_cells
 
 
+def polygon_prefix_planes(
+    state: QueryState, in_map: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row prefix sums that turn the reduction of a polygon's row span
+    into two lookups (the tiled polygonal evaluator,
+    ``parallel/sharding.py``).
+
+    Returns (counts (H, W+1) int32, the prefix of fail * 65536 + pass per
+    cell; tv (H, W+1) f32, the prefix of the passing cells' traversability,
+    NaN read as the default). The packed counts stay exact in int32 up to
+    ~32k columns (W * 65537 < 2^31). Cells where `in_map` is False (a tile's padding beyond the map) count as
+    neither.
+    """
+    ok = state.traversable_mask
+    fail = ~ok
+    if in_map is not None:
+        ok = ok & in_map
+        fail = fail & in_map
+    tv = torch.where(
+        torch.isfinite(state.traversability),
+        state.traversability,
+        state.default_traversability,
+    )
+    counts_cell = fail.to(torch.int32) * 65536 + ok.to(torch.int32)
+    tv_cell = torch.where(ok, tv, 0.0)
+    zeros = torch.zeros((ok.shape[0], 1), dtype=torch.int32, device=ok.device)
+    counts = torch.cat([zeros, torch.cumsum(counts_cell, dim=1, dtype=torch.int32)], dim=1)
+    tv_pre = torch.cat([zeros.to(torch.float32), torch.cumsum(tv_cell, dim=1)], dim=1)
+    return counts, tv_pre
+
+
 def swept_hull_translates(poly1, poly2, footprint, d):
     """Convex hull of two TRANSLATED copies of one convex polygon, O(V).
 
@@ -824,23 +863,19 @@ def path_group_window(
     return _extent_window(fp, ex, ey, resolution, identity_orientation)
 
 
-def path_group_window_exact(
+def per_path_window_cells(
     footprint: np.ndarray,
     positions: np.ndarray,
     quaternions: np.ndarray,
     resolution: float,
-) -> Tuple[int, int]:
-    """The per-PATH raster window from the ACTUAL transformed footprint
-    vertices (quaternions are host data at dispatch time), for rotated
-    batches.
-
-    ``path_group_window`` prices a rotated batch at pose extent plus the
-    circumradius over ALL rotations, composed as a sum of maxima over
-    different paths. This computes, per path, the exact bbox of every vertex
-    its swept hulls can touch, {pos_k + R_m fp_v, |k-m| <= 1} (adjacency
-    covers the conservative sweep's prev+d / cur-d vertices), measured
-    around the pose-bbox anchor the evaluator uses, then takes the largest
-    over the batch. Never larger than the other bound.
+) -> np.ndarray:
+    """Per-PATH raster-window requirement (P, 2) int cells from the ACTUAL
+    transformed footprint vertices (quaternions are host data at dispatch
+    time): per path, the exact bbox of every vertex its swept hulls can
+    touch, {pos_k + R_m fp_v, |k-m| <= 1} (adjacency covers the conservative
+    sweep's prev+d / cur-d vertices), measured around the pose-bbox anchor
+    the grouped evaluator uses. The basis of ``path_group_window_exact``
+    and of window bucketing (``plan_window_buckets``).
 
     positions: (P, N, >=2); quaternions: (P, N, 4) xyzw. Padded poses must
     repeat the last valid pose (they only duplicate vertices).
@@ -874,9 +909,106 @@ def path_group_window_exact(
     vert_hi_y = (pos[..., 1] + hi_y).max(axis=1)
     vert_lo_y = (pos[..., 1] + lo_y).min(axis=1)
     anchor = 0.5 * (pos.max(axis=1) + pos.min(axis=1))  # (P, 2)
-    reach_x = float(np.maximum(vert_hi_x - anchor[:, 0], anchor[:, 0] - vert_lo_x).max())
-    reach_y = float(np.maximum(vert_hi_y - anchor[:, 1], anchor[:, 1] - vert_lo_y).max())
-    return (_window_cells(reach_x, resolution), _window_cells(reach_y, resolution))
+    reach_x = np.maximum(vert_hi_x - anchor[:, 0], anchor[:, 0] - vert_lo_x)
+    reach_y = np.maximum(vert_hi_y - anchor[:, 1], anchor[:, 1] - vert_lo_y)
+
+    def cells(reach):
+        # _window_cells, elementwise
+        c = 2 * np.ceil(reach / resolution).astype(np.int64) + 3
+        return ((c + 3) // 4) * 4
+
+    return np.stack([cells(reach_x), cells(reach_y)], axis=-1)
+
+
+def path_group_window_exact(
+    footprint: np.ndarray,
+    positions: np.ndarray,
+    quaternions: np.ndarray,
+    resolution: float,
+) -> Tuple[int, int]:
+    """The per-PATH raster window of ``check_polygonal_paths_grouped`` for
+    rotated batches: the largest ``per_path_window_cells`` over the batch.
+
+    ``path_group_window`` prices a rotated batch at pose extent plus the
+    circumradius over ALL rotations, composed as a sum of maxima over
+    different paths; this is never larger.
+    """
+    win = per_path_window_cells(footprint, positions, quaternions, resolution)
+    return int(win[:, 0].max()), int(win[:, 1].max())
+
+
+def plan_window_buckets(
+    footprint: np.ndarray,
+    positions: np.ndarray,
+    quaternions: np.ndarray,
+    resolution: float,
+    n_buckets: int = 2,
+):
+    """Host-side window-bucketing plan for a polygonal batch: paths sorted by
+    the area of their own raster window (``per_path_window_cells``) and cut
+    into `n_buckets` groups of equal size, each with the smallest window
+    covering its members. One static window prices every path at the batch's
+    worst case; in a planner batch the per-path extents follow a random walk
+    whose tail sets the maximum, so most paths need about half that area.
+
+    Returns (idx_groups, windows, inverse): the groups' path indices, each
+    group's (wi, wj), and the permutation that restores the batch order of
+    the concatenated group results. For ``check_polygonal_paths_bucketed``.
+    """
+    pos_np = np.asarray(positions, np.float32)
+    quat_np = np.asarray(quaternions, np.float32)
+    P = pos_np.shape[0]
+    win_pp = per_path_window_cells(footprint, pos_np, quat_np, resolution)
+    areas = win_pp[:, 0] * win_pp[:, 1]
+    order = np.argsort(areas, kind="stable")
+    idx_groups, windows = [], []
+    lo = 0
+    for b in range(n_buckets):
+        hi = (P * (b + 1)) // n_buckets
+        idx = order[lo:hi]
+        lo = hi
+        if idx.size == 0:
+            continue
+        idx_groups.append(idx)
+        windows.append((int(win_pp[idx, 0].max()), int(win_pp[idx, 1].max())))
+    inverse = np.argsort(np.concatenate(idx_groups), kind="stable")
+    return (
+        tuple(tuple(g.tolist()) for g in idx_groups),
+        tuple(windows),
+        tuple(inverse.tolist()),
+    )
+
+
+def check_polygonal_paths_bucketed(
+    state: QueryState,
+    positions,
+    quaternions,
+    n_poses,
+    footprint,
+    plan,
+    conservative: bool = False,
+    translate_only: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The grouped evaluator under a ``plan_window_buckets`` plan: one
+    grouped evaluation per bucket, with that bucket's window. Per-path
+    results are independent of the batch, so verdicts and areas equal the
+    single-window call's; traversability sums run over another window shape
+    (within the last ulps). Same requirements as
+    ``check_polygonal_paths_grouped``.
+    """
+    positions, quaternions, n_poses, footprint = _path_inputs(
+        state, positions, quaternions, n_poses, footprint
+    )
+    idx_groups, windows, inverse = plan
+    outs = []
+    for idx, window in zip(idx_groups, windows):
+        ii = torch.as_tensor(idx, dtype=torch.int64, device=state.device)
+        outs.append(check_polygonal_paths_grouped(
+            state, positions[ii], quaternions[ii], n_poses[ii], footprint, window,
+            conservative, translate_only,
+        ))
+    inv = torch.as_tensor(inverse, dtype=torch.int64, device=state.device)
+    return tuple(torch.cat([o[k] for o in outs])[inv] for k in range(3))
 
 
 def path_block_window(

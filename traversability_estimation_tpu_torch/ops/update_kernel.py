@@ -18,11 +18,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from traversability_estimation_tpu_torch.grid.geometry import circle_offsets
+from traversability_estimation_tpu_torch.grid.geometry import circle_offsets, global_in_map
 from traversability_estimation_tpu_torch.kernels import build
 from traversability_estimation_tpu_torch.ops import expr, filters, veto
 from traversability_estimation_tpu_torch.ops.filters import ChainConfig, f32, rcp
@@ -80,6 +81,7 @@ class FusedParams(ctypes.Structure):
         ("ccn_rcp", ctypes.c_float), ("rough_crit", ctypes.c_float),
         ("rough_rcp", ctypes.c_float), ("veto_crit", ctypes.c_float),
         ("slope_ncrit", ctypes.c_float), ("rough_ncrit", ctypes.c_float),
+        ("gi0", ctypes.c_int), ("gj0", ctypes.c_int), ("gh", ctypes.c_int), ("gw", ctypes.c_int),
     ]
 
 
@@ -127,7 +129,7 @@ def fusion_program(chain_cfg: ChainConfig) -> Tuple[Tuple[int, ...], Tuple[float
 def kernel_params(chain_cfg: ChainConfig, veto_cfg: VetoConfig) -> FusedParams:
     """The kernel's parameter block: stencil tables, stage reaches and
     float32 constants, all derived on the host exactly as the plain version
-    derives them."""
+    derives them. Shared: ``fused_update`` sets the map frame on a copy."""
     if veto_cfg.check_roughness and not chain_cfg.compute_roughness:
         raise ValueError("check_roughness needs chain.compute_roughness")
     res = chain_cfg.resolution
@@ -189,11 +191,34 @@ def kernel_params(chain_cfg: ChainConfig, veto_cfg: VetoConfig) -> FusedParams:
     return p
 
 
+def _frame(shape, origin, global_shape) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """(origin, global shape) of an (H, W) array in its map; the defaults
+    (0, 0) and None make the array the whole map."""
+    gi0, gj0 = (int(v) for v in origin)
+    gh, gw = (int(v) for v in (shape if global_shape is None else global_shape))
+    return (gi0, gj0), (gh, gw)
+
+
 def fused_update_plain(
-    elevation: torch.Tensor, chain_cfg: ChainConfig, veto_cfg: VetoConfig
+    elevation: torch.Tensor,
+    chain_cfg: ChainConfig,
+    veto_cfg: VetoConfig,
+    origin: Tuple[int, int] = (0, 0),
+    global_shape: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, torch.Tensor]:
-    """The update as whole-plane torch ops (the JAX ``_update_step``)."""
+    """The update as whole-plane torch ops (the JAX ``_update_step``).
+
+    `origin` and `global_shape` place the array in a larger map, as a tile
+    with its halo: array cell (i, j) is map cell (i + origin[0], j +
+    origin[1]) of a `global_shape` map (default: the array is the map).
+    Cells beyond the map hold no elevation (NaN) and end the step veto's
+    walk: the JAX tile body's ``in_map`` plane (``parallel/sharding.py``)."""
     elevation = elevation.to(torch.float32)
+    origin, global_shape = _frame(elevation.shape, origin, global_shape)
+    in_map = None
+    if origin != (0, 0) or global_shape != tuple(elevation.shape):
+        in_map = global_in_map(elevation.shape, origin, global_shape, elevation.device)
+        elevation = torch.where(in_map, elevation, math.nan)
     layers = filters.run_chain(elevation, chain_cfg)
     veto_in = {
         "elevation": elevation,
@@ -202,7 +227,7 @@ def fused_update_plain(
     }
     if veto_cfg.check_roughness:
         veto_in["traversability_roughness"] = layers["traversability_roughness"]
-    layers.update(veto.compute_veto_fields(veto_in, veto_cfg))
+    layers.update(veto.compute_veto_fields(veto_in, veto_cfg, in_map))
     return layers
 
 
@@ -293,18 +318,25 @@ def library() -> ctypes.CDLL:
 
 
 def fused_update(
-    elevation: torch.Tensor, chain_cfg: ChainConfig, veto_cfg: VetoConfig
+    elevation: torch.Tensor,
+    chain_cfg: ChainConfig,
+    veto_cfg: VetoConfig,
+    origin: Tuple[int, int] = (0, 0),
+    global_shape: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, torch.Tensor]:
     """The map update. CPU tensor: the plain version. CUDA tensor: kernel 1,
-    which writes every layer. ``fused_update.launches`` counts updates that
-    ran kernel 1 (each is two kernel launches: layers, then vetoes)."""
+    which writes every layer. `origin` and `global_shape` place the array in
+    a larger map (``fused_update_plain``); the kernel tests each cell against
+    them. ``fused_update.launches`` counts updates that ran kernel 1 (each is
+    two kernel launches: layers, then vetoes)."""
     if elevation.device.type == "cpu":
-        return fused_update_plain(elevation, chain_cfg, veto_cfg)
+        return fused_update_plain(elevation, chain_cfg, veto_cfg, origin, global_shape)
     if elevation.device.type != "cuda" or elevation.dim() != 2:
         raise ValueError("fused_update kernel: needs an (H, W) CUDA tensor")
-    params = kernel_params(chain_cfg, veto_cfg)
+    params = FusedParams.from_buffer_copy(kernel_params(chain_cfg, veto_cfg))
     elev = elevation.to(torch.float32).contiguous()
     H, W = elev.shape
+    (params.gi0, params.gj0), (params.gh, params.gw) = _frame((H, W), origin, global_shape)
     plan = launch_plan(params, H, W)
     rough = chain_cfg.compute_roughness
     check = veto_cfg.check_roughness

@@ -188,6 +188,75 @@ def step_veto_ok(
     return ~fail
 
 
+def step_veto_ok_v1(
+    elevation: torch.Tensor,
+    step_layer: torch.Tensor,
+    cfg: VetoConfig,
+    in_map: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """checkForStep as a dense field in the bool-plane formulation: the JAX
+    package's retained referee of the sentinel-folded ``step_veto_ok``,
+    which it must equal cell for cell.
+
+    Triggers, walks and candidates test ``in_map``, ``step == 0`` and the
+    elevation as separate planes instead of reading them folded into
+    ``selev`` / ``welev``; a non-finite in-map cell is a gap, an out-of-map
+    cell ends the walk.
+    """
+    elev = elevation.to(torch.float32)
+    step0 = step_layer == 0.0
+    crit = f32(cfg.critical_step_height)
+    nan = float("nan")
+    if in_map is None:
+        in_map = torch.ones(elev.shape, dtype=torch.bool, device=elev.device)
+
+    dirs = _ray_directions(cfg)
+    ray_fail = []
+    for di, dj, K in dirs:
+        h = elev
+        trigger = (
+            _shifted(in_map, di, dj, False)
+            & _shifted(step0, di, dj, False)
+            & (_shifted(elev, di, dj, nan) < h - crit)
+        )
+        gap_started = torch.zeros_like(step0)
+        ended = torch.zeros_like(step0)
+        wall_fail = torch.zeros_like(step0)
+        any_gap = torch.zeros_like(step0)
+        for t in range(1, K + 1):
+            e_t = _shifted(elev, di * t, dj * t, nan)
+            active = _shifted(in_map, di * t, dj * t, False)  # the walk stops at the map's edge
+            wall_t = active & (e_t > h + crit)
+            gap_t = active & ((e_t < h - crit) | ~torch.isfinite(e_t))
+            mid_t = active & ~wall_t & ~gap_t
+            end_t = mid_t & gap_started & ~ended
+            wall_fail = wall_fail | (wall_t & ~ended)
+            any_gap = any_gap | (gap_t & ~ended)
+            gap_started = gap_started | gap_t
+            ended = ended | end_t
+        ray_fail.append(trigger & (wall_fail | (any_gap & ~ended)))
+
+    has_cand = torch.zeros_like(step0)
+    fail_from_cand = torch.zeros_like(step0)
+    for oi, oj, allowed in candidate_sectors(cfg):
+        plane = torch.zeros_like(step0)
+        for d_idx in allowed:
+            plane = plane | ray_fail[d_idx]
+        active = (
+            _shifted(in_map, oi, oj, False)
+            & _shifted(step0, oi, oj, False)
+            & (_shifted(elev, oi, oj, nan) > elev + crit)
+        )
+        has_cand = has_cand | active
+        fail_from_cand = fail_from_cand | (active & _shifted(plane, oi, oj, False))
+
+    fail_self = torch.zeros_like(step0)
+    for rf in ray_fail:
+        fail_self = fail_self | rf
+    fail = step0 & ((has_cand & fail_from_cand) | (~has_cand & fail_self))
+    return ~fail
+
+
 def compute_veto_fields(
     layers: Dict[str, torch.Tensor],
     cfg: VetoConfig,
