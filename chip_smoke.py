@@ -103,9 +103,34 @@ Phases (any failure exits non-zero):
    verdicts equal to the local evaluators on the same planes, traversability
    within 1e-5, areas within rtol 1e-5. CUDA-event times of every stage and
    of one whole-map update at each size;
-10. a ``kernels`` JSON line (launches summed over phases 4, 5, 7, 8 and 9),
-   the card line, and the contract line ``{"ok": true, "device": {...}}``
-   last.
+10. the roofline and the drivers a user runs: (a) the card's peaks
+   (``utils/roofline.measure_peaks``: an FMA chain, a 3-input logic chain
+   and a 512 MB copy from ``csrc/peaks.cu``) beside the spec sheet (bar: none
+   over 105% of it, which would be a broken measurement), and kernels 1 and
+   2 at 336^2, the online crops and 1667^2 against the JAX package's work
+   counts priced at them (pct_sol); (b) ``scripts/online_loop.main`` at
+   config 4: 3 s free-run circular, 2 s at 10 Hz, 2 s polygonal, 2 s roaming
+   in a 20 m window. Bars: each JSON row has the JAX row's keys, kernel 1
+   launches once per tick and kernel 2 once per circular tick, every tick's
+   verdicts are collected, and the first 3 ticks' verdicts equal
+   ``online_tick`` on the same inputs; (c) ``scripts/rollouts.main`` at config
+   5's defaults (6667^2, 100,000 x 12) for 3 steps with ``--stages``. Bars:
+   kernel 1 and kernel 2 each launch once for the map's first update and
+   the start check, then once a step; on step 0's query window the map's
+   layers (the 6667^2 first update and step 0's refresh) are bit-identical
+   to the plain update on the card inside the window's halo, and the start
+   check's whole-map circle field to the plain field inside the circle's
+   reach; the start check's 256 verdicts equal ``check_circles`` on the CPU
+   over its planes; 1,024 rollouts of step 0 and 1,024 started beside the
+   start field's untraversable cell nearest the robot (answered by the
+   estimator on the final map), each held to the CPU on the query window it
+   was answered on (is_safe equal, traversability within 1e-6), the sample
+   holding both verdicts. The native C++ baseline's rate on step 0's sample
+   is printed beside (not a bar); (d)
+   ``scripts/scaling_bench --sizes 1`` over ``nccl``;
+11. a ``kernels`` JSON line (launches summed over phases 4, 5, 7, 8, 9 and
+   10), the card line, and the contract line ``{"ok": true, "device":
+   {...}}`` last.
 """
 
 from __future__ import annotations
@@ -121,11 +146,6 @@ import time
 from pathlib import Path
 
 import numpy as np
-
-PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-SM_CLOCK_MAX_HZ = 1.98e9  # H100 SXM boost clock: a sleep of N cycles lasts >= N / this
-
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
@@ -527,6 +547,7 @@ def tiled_phase(card_line, res, terrain, cfg, source, zero_counts, counts, timer
     from traversability_estimation_tpu_torch.ops import field_kernel, footprint, update_kernel
     from traversability_estimation_tpu_torch.parallel import multihost
     from traversability_estimation_tpu_torch.parallel import sharding as sh
+    from traversability_estimation_tpu_torch.scripts import rollouts
 
     dev = torch.device("cuda")
     chain, veto = cfg.chain, cfg.veto
@@ -731,18 +752,12 @@ def tiled_phase(card_line, res, terrain, cfg, source, zero_counts, counts, timer
     tally({"fused_update": 1, "circle_field": 1}, "config 5 update and field")
     state5 = footprint.QueryState(layers5["traversability"], layers5["traversable_mask"],
                                   torch.zeros(2, device=dev), res, 0.5)
-    # scripts/rollouts.py's batch: every rollout from the traversable cell
+    # the rollouts script's batch: every rollout from the traversable cell
     # nearest the map's centre (a corner of the terrain's plateau)
-    ii, jj = np.nonzero(ok5.cpu().numpy())
-    kc = int(np.argmin((ii - n5 / 2) ** 2 + (jj - n5 / 2) ** 2))
-    robot = np.array([n5 * res / 2 - (ii[kc] + 0.5) * res, n5 * res / 2 - (jj[kc] + 0.5) * res])
+    robot = rollouts.nearest_traversable(ok5.cpu().numpy(), res)
     rng = np.random.default_rng(5)
     N5 = 12
-    headings = rng.uniform(0, 2 * np.pi, TILED_ROLLOUTS)
-    base = np.stack([np.cos(headings), np.sin(headings)], -1) * 0.25
-    steps = base[:, None, :] + rng.uniform(-0.08, 0.08, (TILED_ROLLOUTS, N5 - 1, 2))
-    poses5 = np.concatenate([np.broadcast_to(robot, (TILED_ROLLOUTS, 1, 2)),
-                             robot + np.cumsum(steps, 1)], 1).astype(np.float32)
+    poses5 = rollouts.rollout_batch(rng, robot, TILED_ROLLOUTS, N5)
     poses5_d = torch.as_tensor(poses5, device=dev)
     n5_d = torch.full((TILED_ROLLOUTS,), N5, dtype=torch.int32, device=dev)
     samples = TILED_ROLLOUTS * (N5 - 1) * 4
@@ -835,6 +850,282 @@ def tiled_phase(card_line, res, terrain, cfg, source, zero_counts, counts, timer
     return launches
 
 
+# the keys of the JAX package's online-loop row (scripts/online_loop.py), which
+# the port's row must carry
+ONLINE_ROW_KEYS = {
+    "kind", "fused", "pipelined_fetch", "fetch_depth", "fetch_bytes", "dispatch_only",
+    "drain_s", "upload_bytes_per_tick", "upload_probe_ms", "query", "mode", "map_cells",
+    "target_hz", "free_run", "achieved_hz", "warmup_ticks", "warmup_s", "measured_s", "ticks",
+    "update_ms", "query_ms", "paths_per_tick",
+}
+# phase 10's online-loop runs of config 4: label -> the script's arguments
+ONLINE_RUNS = {
+    "free-run circular": ["--seconds", "3", "--rate", "0"],
+    "10 Hz circular": ["--seconds", "2", "--rate", "10"],
+    "free-run polygonal": ["--seconds", "2", "--rate", "0", "--footprint"],
+    "free-run roaming, 20 m window": ["--seconds", "2", "--rate", "0", "--window-m", "20"],
+}
+ROLLOUT_SAMPLE = 1024
+
+
+def drivers_phase(card_line, res, cfg, zero_counts, counts, k1_at, k2_at):
+    """Phase 10: the roofline and the user-facing drivers on the card (see
+    the module docstring). `k1_at` / `k2_at`: device ms of kernels 1 and 2
+    by (H, W) from the earlier phases. Returns (the launches of both
+    kernels over the online-loop and rollout runs, the roofline at 336^2 of
+    each kernel: {name: (bound ms, pct_sol)})."""
+    import tempfile
+
+    import torch
+
+    from traversability_estimation_tpu_torch import TraversabilityEstimator
+    from traversability_estimation_tpu_torch.ops import footprint, update_kernel
+    from traversability_estimation_tpu_torch.ops.veto import required_halo
+    from traversability_estimation_tpu_torch.parallel.sharding import backend_for
+    from traversability_estimation_tpu_torch.scripts import online_loop, rollouts, scaling_bench
+    from traversability_estimation_tpu_torch.utils import native, roofline
+    from traversability_estimation_tpu_torch.utils.sources import SyntheticTerrainSource
+
+    dev = torch.device("cuda")
+    launches = {"fused_update": 0, "circle_field": 0}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+
+    # (a) the card's peaks, and the JAX package's work counts priced at them
+    t0 = time.perf_counter()
+    peaks = roofline.measure_peaks(device=dev)
+    spec = roofline.spec_peaks(dev)
+    for key, unit in (("vpu_f32_flops_per_s", "TFLOP/s"), ("bool_ops_per_s", "Tops/s"),
+                      ("hbm_bytes_per_s", "TB/s")):
+        ratio = peaks[key] / spec[key]
+        log(f"peak {key} ({card_line}): measured {peaks[key] / 1e12:.4f} {unit}, spec "
+            f"{spec[key] / 1e12:.4f} {unit}, {100 * ratio:.1f}% of spec")
+        if ratio > 1.05:
+            fail(f"the measured {key} reads {100 * ratio:.1f}% of the spec sheet: a broken "
+                 "measurement")
+    shift_s = roofline.measure_static_shift_cost(
+        (336, 336), vpu_f32_ops_per_s=peaks["vpu_f32_ops_per_s"], device=dev)
+    radius, offset = 0.3, cfg.footprint.circular_footprint_offset
+    work = {"fused_update": (roofline.update_op_estimate(cfg.chain, cfg.veto), k1_at),
+            "dense_circle_field": (roofline.circle_field_op_estimate(radius + offset, res),
+                                   k2_at)}
+    sol = {}
+    for name, (counts_k, times) in work.items():
+        for (h, w), ms in sorted(times.items()):
+            rep = roofline.sol_report(h * w, ms / 1e3, counts_k, peaks["vpu_f32_flops_per_s"],
+                                      peaks["hbm_bytes_per_s"], peaks["bool_ops_per_s"])
+            bound_ms = 1e3 * max(rep["t_compute_bound_s"], rep["t_memory_bound_s"])
+            extra = ""
+            if (h, w) == (336, 336):
+                sol[name] = (bound_ms, rep["pct_sol"])
+                rep_s = roofline.sol_report(h * w, ms / 1e3, counts_k,
+                                            peaks["vpu_f32_flops_per_s"],
+                                            peaks["hbm_bytes_per_s"], peaks["bool_ops_per_s"],
+                                            shift_cost_s=shift_s)
+                extra = (f"; with shifted reads priced at {shift_s * 1e6:.4f} us a plane: "
+                         f"pct_sol {rep_s['pct_sol']:.2f}")
+            log(f"roofline {name} at {h}x{w} ({card_line}): {ms:.4f} ms device time, bound "
+                f"{bound_ms:.4f} ms from measured peaks over the JAX work counts "
+                f"({rep['binding']}), pct_sol {rep['pct_sol']:.2f}{extra}")
+    log(f"roofline: {time.perf_counter() - t0:.1f} s")
+
+    # (b) the online loop of config 4, as a user runs it
+    src = SyntheticTerrainSource(res)
+    for label, extra in ONLINE_RUNS.items():
+        record = []
+        path = os.path.join(out_dir, "online.json")
+        zero_counts()
+        argv = extra + ["--json", path]
+        opts = online_loop.parser().parse_args(argv)
+        row = online_loop.main(argv, record=record)
+        got = counts()
+        with open(path) as f:
+            if json.loads(f.readline()) != row:
+                fail(f"online loop {label}: the JSON file differs from the returned row")
+        missing = ONLINE_ROW_KEYS - set(row)
+        if missing:
+            fail(f"online loop {label}: the row lacks {sorted(missing)}")
+        n_ticks = row["warmup_ticks"] + row["ticks"]
+        want = {"fused_update": n_ticks,
+                "circle_field": 0 if "--footprint" in extra else n_ticks}
+        if got != want:
+            fail(f"online loop {label}: kernel launches {got}, expected {want}")
+        depth = 3 if row["free_run"] else 1
+        if not (row["ticks"] >= 1 and row["achieved_hz"] > 0 and row["fetch_bytes"] == opts.paths
+                and row["fetch_depth"] == depth and len(record) == n_ticks):
+            fail(f"online loop {label}: row {row}, {len(record)} ticks collected")
+        for k in launches:
+            launches[k] += got[k]
+        if label == "free-run circular":
+            # the script's first ticks against online_tick on the same inputs
+            est = TraversabilityEstimator(cfg, device=dev)
+            n = row["map_cells"][0]
+            est.set_elevation_map(np.full((n, n), np.nan, np.float32))
+            rng = np.random.default_rng(0)
+            for t in range(3):
+                patch, center, poses, n_poses = online_loop.tick_inputs(
+                    t, rng, src, opts.map_m, opts.paths)
+                safe = est.online_tick(patch, center, poses, n_poses, radius=0.3)[0].cpu()
+                if record[t][0] != t or not np.array_equal(record[t][1], safe.numpy()):
+                    fail(f"online loop tick {t}: the verdicts differ from online_tick's")
+            del est
+        upd, qry = row["update_ms"], row["query_ms"]
+        log(f"online loop {label} ({card_line}): {row['ticks']} ticks in {row['measured_s']} s, "
+            f"{row['achieved_hz']} Hz, map {row['map_cells']}, fetch depth {row['fetch_depth']};"
+            f" tick queued p50 {upd['p50_ms']:.4f} ms p99 {upd['p99_ms']:.4f} ms; verdicts "
+            f"collected p50 {qry.get('p50_ms', float('nan')):.4f} ms p99 "
+            f"{qry.get('p99_ms', float('nan')):.4f} ms; upload probe {row['upload_probe_ms']} "
+            f"ms; launches {got}"
+            + ("; ticks 0-2 equal to online_tick on the same inputs"
+               if label == "free-run circular" else ""))
+
+    # (c) config 5's rollouts at the script's defaults, three steps
+    steps = 3
+    record = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    row = rollouts.main(["--steps", str(steps), "--stages"], record=record)
+    wall = time.perf_counter() - t0
+    got = counts()
+    if row is None or len(record["steps"]) != steps:
+        fail("rollouts: no traversable start, or steps missing")
+    want = {"fused_update": 1 + steps, "circle_field": 1 + steps}
+    if got != want:
+        fail(f"rollouts: kernel launches {got}, expected {want}: the initial update and the "
+             "start check's whole-map field, then one update and one query-crop field a step")
+    for k in launches:
+        launches[k] += got[k]
+    est, start, r0 = record["estimator"], record["start"], record["steps"][0]
+    lay, (i0, j0, h, w) = r0["layers"], r0["window"]
+    win = (slice(i0, i0 + h), slice(j0, j0 + w))
+
+    def same_np(a, b):
+        return a.dtype == b.dtype and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+
+    # kernel 1 at config 5's size: the plain update on the card over step 0's
+    # query window (cells of the initial whole-map update and of step 0's
+    # refresh), bit-identical to the map's layers inside the window's halo
+    m = required_halo(est.config.chain, est.config.veto)
+    plain = update_kernel.fused_update_plain(
+        torch.as_tensor(lay["elevation"], device=dev), est.config.chain, est.config.veto,
+        origin=(i0, j0), global_shape=tuple(row["map_cells"]))
+    inner = (slice(m, h - m), slice(m, w - m))
+    for k in ("traversability", "traversability_slope", "traversability_step",
+              "traversable_mask"):
+        if not same_np(plain[k].cpu().numpy()[inner], lay[k][inner]):
+            fail(f"rollouts: the map's {k} differs from the plain update over step 0's "
+                 f"{h}x{w} window, {m} cells of halo off")
+    # kernel 2 at config 5's size: the start check's whole-map field over the
+    # same window, bit-identical to the plain field over the start map's
+    # planes there, beyond the circle's reach of the window's edge
+    st = start["state"]
+    sub = footprint.QueryState(st.traversability[win], st.traversable_mask[win], st.position,
+                               res, st.default_traversability)
+    ok_p, trav_p = (f.cpu().numpy() for f in footprint.dense_circle_field(
+        sub, radius + offset, radius))
+    reach = int(np.ceil((radius + offset) / res)) + 1
+    inner2 = (slice(reach, h - reach), slice(reach, w - reach))
+    ok_w, trav_w = (f[win].cpu().numpy() for f in start["field"])
+    if not (same_np(ok_w[inner2], ok_p[inner2]) and same_np(trav_w[inner2], trav_p[inner2])):
+        fail(f"rollouts: the start check's whole-map circle field differs from the plain field "
+             f"over the {h}x{w} window")
+    # the start check's verdicts against check_circles on the CPU over its planes
+    st_cpu = footprint.QueryState(st.traversability.cpu(), st.traversable_mask.cpu(),
+                                  st.position.cpu(), res, st.default_traversability)
+    ok_s, trav_s = footprint.check_circles(
+        st_cpu, torch.from_numpy(start["candidates"][:, 0]), radius + offset, radius)
+    ok_s = ok_s.numpy()
+    start_err = float(np.abs(np.where(ok_s, trav_s.numpy(), 0.0) - start["trav"]).max())
+    if not np.array_equal(ok_s, start["ok"]) or start_err > 1e-6:
+        fail(f"rollouts: the start check's verdicts differ from check_circles on the CPU "
+             f"({int((ok_s != start['ok']).sum())} verdicts, trav by {start_err:g})")
+
+    def cpu_paths(trav_plane, mask_plane, position, poses, max_cells):
+        """check_circular_paths on the CPU over a query window's planes."""
+        state_c = footprint.QueryState(
+            torch.as_tensor(trav_plane).cpu(), torch.as_tensor(mask_plane).cpu(),
+            torch.as_tensor(position).cpu(), res, 0.5)
+        field_c = footprint.dense_circle_field(state_c, radius + offset, radius)
+        s, t = footprint.check_circular_paths(
+            state_c, poses, np.full((len(poses),), poses.shape[1], np.int32), radius, offset,
+            max_cells, field_c, False)
+        return s.numpy(), t.numpy()
+
+    # a sample of step 0's rollouts, and a batch beside an obstacle (the start
+    # field's untraversable cell nearest the robot) answered by the estimator
+    # on the final map, each against the CPU on the query window it was
+    # answered on
+    P, N = r0["poses"].shape[:2]
+    n_pick = min(ROLLOUT_SAMPLE, P)
+    pick = np.random.default_rng(7).choice(P, n_pick, replace=False)
+    t0 = time.perf_counter()
+    safe_c, trav_c = cpu_paths(lay["traversability"], lay["traversable_mask"], r0["position"],
+                               r0["poses"][pick], r0["max_cells"])
+    ok_whole = start["field"][0]
+    p0 = st.position.cpu().numpy().astype(np.float64) + np.array(ok_whole.shape) * res / 2
+    bad = torch.nonzero(~ok_whole).double()
+    if not len(bad):
+        fail("rollouts: the start check's field has no untraversable cell")
+    rc = torch.as_tensor(np.floor((p0 - r0["robot"]) / res), device=dev)
+    b = bad[torch.argmin(((bad - rc) ** 2).sum(1))]
+    lo = torch.clamp(b - 32, min=0).long()
+    good = torch.nonzero(ok_whole[lo[0] : lo[0] + 65, lo[1] : lo[1] + 65]).double() + lo
+    if not len(good):
+        fail("rollouts: no traversable cell within 32 cells of the obstacle")
+    edge = p0 - (good[torch.argmin(((good - b) ** 2).sum(1))].cpu().numpy() + 0.5) * res
+    poses_e = rollouts.rollout_batch(np.random.default_rng(11), edge, n_pick, N)
+    n_e = np.full((n_pick,), N, np.int32)
+    safe_e, trav_e = (x.cpu().numpy() for x in est.check_circular_paths_batch(
+        poses_e, n_e, radius))
+    crop_e, _ = est._cropped_state_and_field(est._current_epoch(), poses_e, radius, offset)
+    safe_ec, trav_ec = cpu_paths(crop_e.traversability, crop_e.traversable_mask,
+                                 crop_e.position, poses_e, est._max_segment_cells(poses_e, n_e))
+    cpu_s = time.perf_counter() - t0
+    safe_g = np.concatenate([r0["safe"][pick], safe_e])
+    safe_w = np.concatenate([safe_c, safe_ec])
+    if not np.array_equal(safe_g, safe_w):
+        fail(f"rollouts: is_safe of the sample differs from the CPU run on "
+             f"{int((safe_g != safe_w).sum())} of {len(safe_g)}")
+    t_err = float(np.abs(np.concatenate([r0["trav"][pick], trav_e]) - np.concatenate(
+        [trav_c, trav_ec])).max())
+    if t_err > 1e-6:
+        fail(f"rollouts: traversability of the sample differs from the CPU run by {t_err:g}")
+    if safe_g.all() or not safe_g.any():
+        fail(f"rollouts: the sample holds one verdict only ({int(safe_g.sum())} of "
+             f"{len(safe_g)} safe)")
+    try:
+        eng = native.BaselineQueryEngine(
+            {k: lay[k] for k in ("elevation", "traversability", "traversability_slope",
+                                 "traversability_step")}, res)
+        centers = (r0["poses"][pick].reshape(-1, 2) - r0["position"]).astype(np.float64)
+        t0 = time.perf_counter()
+        eng.check_circles(centers, radius + offset, radius)
+        native_rate = f"{len(centers) / (time.perf_counter() - t0):.6g} circle checks/s"
+    except native.NativeUnavailable as e:
+        native_rate = f"not measured ({e})"
+    log(f"rollouts (config 5, {row['map_cells']} cells, {P} x {N}, {card_line}): budget p50 "
+        f"{row['budget_p50_ms']} ms -> {row['pose_checks_per_s']:.6g} pose-checks/s; stage "
+        f"p50 ms {row['stage_p50_ms']}; {wall:.1f} s with the map's set-up; launches {got}; "
+        f"on step 0's {h}x{w} query window the map's layers bit-identical to the plain update "
+        f"({m} cells of halo off) and the start check's whole-map field to the plain field; "
+        f"the start check's {len(ok_s)} verdicts ({int(ok_s.sum())} ok) equal to check_circles "
+        f"on the CPU, trav within {start_err:g}; {n_pick} rollouts of step 0 and {n_pick} "
+        f"beside the obstacle at {np.round(edge, 3).tolist()} against the CPU on their query "
+        f"windows ({cpu_s:.1f} s): is_safe equal ({int(safe_c.sum())} and "
+        f"{int(safe_ec.sum())} safe), trav max diff {t_err:g}; the native C++ baseline on "
+        f"this host, one thread, step 0's sample's {n_pick * N} poses: {native_rate}")
+
+    # (d) scaling of the tiled path, one process over nccl
+    t0 = time.perf_counter()
+    rows = scaling_bench.main(["--sizes", "1"])
+    kinds = sorted(r["kind"] for r in rows)
+    if kinds != ["scaling_summary", "scaling_tiled_query", "scaling_update"] or \
+            rows[0]["backend"] != backend_for(dev):
+        fail(f"scaling_bench: rows {rows}")
+    log(f"scaling_bench --sizes 1 ({card_line}, {time.perf_counter() - t0:.1f} s): "
+        + "; ".join(json.dumps(r) for r in rows[:2]))
+    return launches, sol
+
+
 def main() -> None:
     import torch
 
@@ -855,6 +1146,7 @@ def main() -> None:
         from traversability_estimation_tpu_torch.kernels import build
         from traversability_estimation_tpu_torch.ops import field_kernel, footprint, update_kernel
         from traversability_estimation_tpu_torch.ops.veto import required_halo
+        from traversability_estimation_tpu_torch.utils import roofline
     except ImportError as e:
         fail(f"the port is not importable here: {e}")
     # the port under test is the one beside this script, never an installed copy
@@ -913,7 +1205,8 @@ def main() -> None:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
-        log(f"launch {name} at {H}x{W}: {geometry[name]}")
+    for name, line in geometry.items():
+        log(f"launch {name} at {H}x{W}: {line}")
     if min(*k1_occ, k2_occ) < 1:
         fail(f"a kernel cannot be resident on an SM: {k1_occ}, {k2_occ}")
 
@@ -944,7 +1237,8 @@ def main() -> None:
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(4 * issue_s * SM_CLOCK_MAX_HZ))
+        # a sleep of N cycles lasts at least N / the boost clock
+        torch.cuda._sleep(int(4 * issue_s * roofline.SM_CLOCK_MAX_HZ))
         t0 = time.perf_counter()
         start.record()
         for _ in range(reps):
@@ -1385,10 +1679,6 @@ def main() -> None:
         f"kernel 1 {big_k1_ms:.4f} ms, kernel 2 (whole map) {big_k2_ms:.4f} ms, path batch "
         f"(crop, field cached) {big_batch_ms:.4f} ms, {int(safe_b.sum())} of {P} safe")
 
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
     # ---- 7. the online loop, config 4 --------------------------------------
     MAP_M, SUB_M, WINDOW_M, ON_P, N_TICKS = 50.0, 4.0, 20.0, 256, 60
     n_map, n_sub, n_win = (int(round(m / res)) for m in (MAP_M, SUB_M, WINDOW_M))
@@ -1613,6 +1903,8 @@ def main() -> None:
     k1_params = update_kernel.kernel_params(cfg.chain, cfg.veto)
     produced = update_kernel.fused_update(crop_dense, cfg.chain, cfg.veto)
     cloned = [layers_on[k] for k in produced if k in layers_on] + [elev_on]
+    # device ms of each kernel at the online shapes, for phase 10's roofline
+    k1_at, k2_at = {(H, W): k1_ms}, {(H, W): k2_ms}
     for hh in (n_crop, n_map):
         plan_h = update_kernel.launch_plan(k1_params, hh, hh)
         occ_h = update_kernel.occupancy(plan_h)
@@ -1620,10 +1912,13 @@ def main() -> None:
         ms_h = device_ms(lambda: update_kernel.fused_update(elev_h, cfg.chain, cfg.veto), 50)
         ms_e = device_ms(
             lambda: update_kernel.fused_update(elev_h, ref_cfg.chain, ref_cfg.veto), 50)
-        b_h, by_h = bound(update_kernel.kernel_bytes(cfg.chain, cfg.veto, hh, hh),
-                          update_kernel.kernel_operations(cfg.chain, cfg.veto, hh, hh))
-        b_e, by_e = bound(update_kernel.kernel_bytes(ref_cfg.chain, ref_cfg.veto, hh, hh),
-                          update_kernel.kernel_operations(ref_cfg.chain, ref_cfg.veto, hh, hh))
+        b_h, by_h = roofline.bound(
+            update_kernel.kernel_bytes(cfg.chain, cfg.veto, hh, hh),
+            update_kernel.kernel_operations(cfg.chain, cfg.veto, hh, hh))
+        b_e, by_e = roofline.bound(
+            update_kernel.kernel_bytes(ref_cfg.chain, ref_cfg.veto, hh, hh),
+            update_kernel.kernel_operations(ref_cfg.chain, ref_cfg.veto, hh, hh))
+        k1_at[(hh, hh)] = ms_h
         if hh == n_crop:
             crop_expr = (ms_h, ms_e, b_e)
         log(f"kernel 1 at {hh}x{hh} ({card_line}): {ms_h:.4f} ms device time, bound {b_h:.4f} ms "
@@ -1644,8 +1939,9 @@ def main() -> None:
         plan_q = field_kernel.device_tables(radius + offset, res, hq, wq, dev)[0]
         ms_q = device_ms(
             lambda: field_kernel.dense_circle_field(state_q, radius + offset, radius), 50)
-        b_q, by_q = bound(field_kernel.kernel_bytes(hq, wq),
-                          field_kernel.kernel_operations(n_off, hq, wq))
+        k2_at[(hq, wq)] = ms_q
+        b_q, by_q = roofline.bound(field_kernel.kernel_bytes(hq, wq),
+                                   field_kernel.kernel_operations(n_off, hq, wq))
         log(f"kernel 2 at {hq}x{wq} ({card_line}): {ms_q:.4f} ms device time, bound "
             f"{b_q:.4f} ms ({by_q}); "
             + launch_line(plan_q.grid, plan_q.block, plan_q.smem_bytes,
@@ -1680,34 +1976,44 @@ def main() -> None:
                                  cuda_ms, device_ms, trace)
     log(f"tiled path: {time.perf_counter() - t0:.1f} s wall, launches {tiled_launches}")
 
-    # ---- 10. report -------------------------------------------------------
-    b1e, _ = bound(update_kernel.kernel_bytes(ref_cfg.chain, ref_cfg.veto, H, W),
-                   update_kernel.kernel_operations(ref_cfg.chain, ref_cfg.veto, H, W))
-    b1, by1 = bound(update_kernel.kernel_bytes(cfg.chain, cfg.veto, H, W),
-                    update_kernel.kernel_operations(cfg.chain, cfg.veto, H, W))
-    b2, by2 = bound(field_kernel.kernel_bytes(H, W), field_kernel.kernel_operations(n_off, H, W))
+    # ---- 10. the roofline and the drivers -----------------------------------
+    t0 = time.perf_counter()
+    driver_launches, sol = drivers_phase(card_line, res, cfg, zero_counts, counts, k1_at, k2_at)
+    log(f"roofline and drivers: {time.perf_counter() - t0:.1f} s wall, launches "
+        f"{driver_launches}")
+
+    # ---- 11. report -------------------------------------------------------
+    b1e, _ = roofline.bound(update_kernel.kernel_bytes(ref_cfg.chain, ref_cfg.veto, H, W),
+                            update_kernel.kernel_operations(ref_cfg.chain, ref_cfg.veto, H, W))
+    b1, by1 = roofline.bound(update_kernel.kernel_bytes(cfg.chain, cfg.veto, H, W),
+                             update_kernel.kernel_operations(cfg.chain, cfg.veto, H, W))
+    b2, by2 = roofline.bound(field_kernel.kernel_bytes(H, W),
+                             field_kernel.kernel_operations(n_off, H, W))
     kernels = [
         {"name": "fused_update", "route": "cuda",
          "source": "traversability_estimation_tpu_torch/csrc/fused_update.cu",
          "replaces": "traversability_estimation_tpu/ops/pallas_chain.py:117",
          "launches": launches["fused_update"] + poly_launches["fused_update"]
          + online_launches["fused_update"] + serve_launches["fused_update"]
-         + tiled_launches["fused_update"],
+         + tiled_launches["fused_update"] + driver_launches["fused_update"],
          "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": b1, "bound_by": by1, "library_ms": None,
          # the same kernel under the reference fusion expression, at 336^2 and
          # at the online tick's 189^2 crop (beside its weighted-sum time there)
          "expression_ms": k1_expr_ms["reference"], "expression_bound_ms": b1e,
          "crop_ms": crop_expr[0], "crop_expression_ms": crop_expr[1],
-         "crop_expression_bound_ms": crop_expr[2]},
+         "crop_expression_bound_ms": crop_expr[2],
+         # measured peaks over the JAX package's work counts (utils/roofline.py)
+         "sol_bound_ms": sol["fused_update"][0], "pct_sol": sol["fused_update"][1]},
         {"name": "dense_circle_field", "route": "cuda",
          "source": "traversability_estimation_tpu_torch/csrc/circle_field.cu",
          "replaces": "traversability_estimation_tpu/ops/pallas_field.py:125",
          "launches": launches["circle_field"] + poly_launches["circle_field"]
          + online_launches["circle_field"] + serve_launches["circle_field"]
-         + tiled_launches["circle_field"],
+         + tiled_launches["circle_field"] + driver_launches["circle_field"],
          "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain_ms, "bound_ms": b2, "bound_by": by2, "library_ms": None},
+         "plain_ms": k2_plain_ms, "bound_ms": b2, "bound_by": by2, "library_ms": None,
+         "sol_bound_ms": sol["dense_circle_field"][0], "pct_sol": sol["dense_circle_field"][1]},
     ]
     log(json.dumps({"kernels": kernels}))
     log(card_line)

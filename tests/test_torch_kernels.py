@@ -404,3 +404,17 @@ def test_node_round_trip_card_matches_cpu(cuda, tmp_path):
     g, w = got_sub["data"]["traversability"], want_sub["data"]["traversability"]
     assert np.array_equal(np.isnan(g), np.isnan(w))
     assert float(np.nanmax(np.abs(g - w))) <= 1e-6
+
+
+def test_measured_peaks_within_the_spec_sheet(cuda):
+    """The roofline's probes (csrc/peaks.cu): each measured peak between 30%
+    and 105% of the spec sheet (above it the measurement is broken), and a
+    shifted-plane read costs something."""
+    from traversability_estimation_tpu_torch.utils import roofline
+
+    peaks = roofline.measure_peaks(k1=200, k2=1000, repeats=1, device=cuda)
+    spec = roofline.spec_peaks(cuda)
+    for key in spec:
+        assert 0.3 * spec[key] < peaks[key] <= 1.05 * spec[key], key
+    assert roofline.measure_static_shift_cost((336, 336), device=cuda) > 0.0
+    assert roofline.measure_shift_floor((256, 256), 64, 16, device=cuda) > 0.0

@@ -1,11 +1,14 @@
-"""Layer dumps for the command line's ``--dump-png``: any layer as PNG and
-NPY on the host (numpy only), with the reference's value conventions (0..1
-traversability, NaN rendered grey)."""
+"""Visualization on the host (numpy only): layer dumps for the command
+line's ``--dump-png`` (any layer as PNG and NPY, with the reference's value
+conventions: 0..1 traversability, NaN rendered grey), and the products of the
+reference's grid_map_visualization node (occupancy grids of the
+traversability layers, a point cloud of the elevation) driven by the same
+visualization YAML."""
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 
@@ -73,3 +76,99 @@ def dump_layers(layers: Dict[str, np.ndarray], out_dir: str, prefix: str = "map"
         write_png(base + ".png", layer_to_rgb(arr))
         written.append(base + ".png")
     return written
+
+
+# ---------------------------------------------------------------------------
+# grid_map_visualization
+# ---------------------------------------------------------------------------
+# The reference ships a visualization node config mapping four traversability
+# layers to ROS occupancy grids and the elevation layer to a point cloud
+# (traversability_estimation/config/visualization/traversability.yaml,
+# launch/visualization.launch). These helpers produce the same products as
+# plain arrays / structured data, driven by the same YAML.
+
+
+def occupancy_grid(
+    layer: np.ndarray, data_min: float, data_max: float
+) -> np.ndarray:
+    """grid_map_visualization OccupancyGridVisualization parity: linearly map
+    [data_min, data_max] -> occupancy [0, 100]; unknown (NaN) -> -1. The
+    shipped config uses data_min=1.0 > data_max=0.0, i.e. traversable=free(0),
+    blocked=occupied(100). Returns int8 (rows, cols)."""
+    arr = np.asarray(layer, np.float64)
+    span = data_max - data_min
+    if span == 0.0:
+        scaled = np.zeros_like(arr)
+    else:
+        scaled = (arr - data_min) / span * 100.0
+    out = np.clip(np.round(scaled), 0.0, 100.0)
+    grid = np.where(np.isfinite(arr), out, -1.0).astype(np.int8)
+    return grid
+
+
+def point_cloud(
+    layers: Dict[str, np.ndarray],
+    z_layer: str,
+    resolution: float,
+    position=(0.0, 0.0),
+    extra_layers: tuple = (),
+) -> np.ndarray:
+    """PointCloudVisualization parity: one point per valid z-layer cell at the
+    cell-center map position, with optional extra per-point channels.
+    Returns a structured array with fields x, y, z (+ extra layer names)."""
+    z = np.asarray(layers[z_layer], np.float32)
+    rows, cols = z.shape
+    x = position[0] + rows * resolution / 2 - (np.arange(rows) + 0.5) * resolution
+    y = position[1] + cols * resolution / 2 - (np.arange(cols) + 0.5) * resolution
+    X = np.broadcast_to(x[:, None], z.shape)
+    Y = np.broadcast_to(y[None, :], z.shape)
+    valid = np.isfinite(z)
+    fields = [("x", np.float32), ("y", np.float32), ("z", np.float32)]
+    fields += [(name, np.float32) for name in extra_layers]
+    out = np.empty(int(valid.sum()), dtype=fields)
+    out["x"] = X[valid]
+    out["y"] = Y[valid]
+    out["z"] = z[valid]
+    for name in extra_layers:
+        out[name] = np.asarray(layers[name], np.float32)[valid]
+    return out
+
+
+def visualizations_from_yaml(
+    yaml_path: Union[str, os.PathLike, dict],
+    layers: Dict[str, np.ndarray],
+    resolution: float,
+    position=(0.0, 0.0),
+) -> Dict[str, np.ndarray]:
+    """Run a reference-format grid_map_visualizations document over a layer
+    dict: occupancy_grid entries -> int8 grids, point_cloud entries ->
+    structured point arrays. Entries whose layer is absent are skipped (the
+    reference node logs and skips them the same way).
+
+    `yaml_path` is the YAML file, or the document already loaded (a dict
+    with a ``grid_map_visualizations`` list): only a path needs PyYAML,
+    which is imported here and nowhere at import time."""
+    if isinstance(yaml_path, dict):
+        doc = yaml_path
+    else:
+        import yaml as _yaml
+
+        with open(yaml_path) as f:
+            doc = _yaml.safe_load(f) or {}
+    out: Dict[str, np.ndarray] = {}
+    for entry in doc.get("grid_map_visualizations", []):
+        name = entry.get("name", "")
+        vtype = entry.get("type", "")
+        params = entry.get("params", {}) or {}
+        layer = params.get("layer", "")
+        if layer not in layers:
+            continue
+        if vtype == "occupancy_grid":
+            out[name] = occupancy_grid(
+                layers[layer],
+                float(params.get("data_min", 0.0)),
+                float(params.get("data_max", 1.0)),
+            )
+        elif vtype == "point_cloud":
+            out[name] = point_cloud(layers, layer, resolution, position)
+    return out
