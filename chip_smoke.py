@@ -36,7 +36,9 @@ Phases (any failure exits non-zero):
    must have launched (kernel 2 through ``traversability_footprint_circle``).
    Bars against the same run on the CPU: is_safe and the dispatch statistics
    equal, area within rtol 1e-5, traversability within 2e-5, dense layers'
-   ok equal and scores within 1e-5. CUDA-event times of each batch;
+   ok equal and scores within 1e-5; the dispatch's window plan
+   (``path_window_plan``) on the card equal to the NumPy planners' integers
+   for the identity and the random-yaw batch. CUDA-event times of each batch;
 6. a 2048^2 map (> 4M cells: the query-crop path) with one path batch;
    both kernels bit-identical to their plain versions there, and timed;
 7. the online loop (config 4): a 50 m x 50 m map at 0.03 m (1667 x 1667
@@ -1593,6 +1595,22 @@ def main() -> None:
     if est.polygonal_dispatch_counts != cpu.polygonal_dispatch_counts:
         fail(f"dispatch counts {est.polygonal_dispatch_counts} differ from the CPU run's "
              f"{cpu.polygonal_dispatch_counts}")
+    # the dispatch's window plan on the card against the NumPy planners
+    for name in ("identity", "random yaw"):
+        b_pos, b_quats, _, b_fp, _ = poly_batches[name][0]
+        plan = footprint.path_window_plan(
+            *(torch.as_tensor(a, device=dev) for a in (b_pos, b_quats, b_fp))).cpu().tolist()
+        identity = bool(np.all(np.abs(b_quats - np.asarray([0, 0, 0, 1])) < 1e-12))
+        ext = b_pos[..., :2].max(axis=1) - b_pos[..., :2].min(axis=1)
+        group = footprint.path_group_window(b_fp, ext, res, True) if identity else \
+            footprint.path_group_window_exact(b_fp, b_pos, b_quats, res)
+        want = (identity, group, footprint.path_block_window(b_fp, b_pos, res, identity))
+        got = footprint.planned_windows(plan, b_fp, res)
+        if got != want:
+            fail(f"polygonal {name}: window plan on the card {got} differs from the NumPy "
+                 f"planners' {want}")
+        log(f"polygonal {name}: window plan on the card equal to the NumPy planners' "
+            f"(identity {identity}, group window {group}, block window {want[2]})")
     for k in dense_layers:
         got, want = layers[k].cpu(), layers_c[k]
         if got.shape != (H, W) or not bool(torch.isfinite(got).all()):

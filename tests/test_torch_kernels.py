@@ -12,7 +12,8 @@ The polygonal evaluators are torch ops without a kernel of their own; their
 card cases hold the CUDA estimator to the same estimator on the CPU
 (is_safe and dispatch equal, traversability within 2e-5, area within rtol
 1e-5: only the sums run in another order), and the dense circular service
-must launch kernel 2.
+must launch kernel 2. Their dispatch's window plan on the card gives the
+NumPy planners' integers on the polygonal cell's own inputs.
 """
 
 import numpy as np
@@ -235,6 +236,39 @@ def test_polygonal_batch_card_matches_cpu(cuda, mode):
     assert torch.equal(safe_g.cpu(), safe_c) and safe_c.any() and not safe_c.all()
     torch.testing.assert_close(trav_g.cpu(), trav_c, rtol=0, atol=2e-5)
     torch.testing.assert_close(area_g.cpu(), area_c, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("orientation", ["random_yaw", "identity"])
+def test_window_plan_card_matches_numpy(cuda, orientation):
+    """The polygonal dispatch's window plan on the card, on the inputs of
+    the benchmark cell poly_paths_336 (1024 x 50 poses, seed 0, epoch 0):
+    the identity flag and every integer of the NumPy planners, and the same
+    plan as on the CPU."""
+    import json
+    from pathlib import Path
+
+    from bench_torch.inputs import epoch_inputs
+
+    bench = json.loads((Path(__file__).resolve().parents[1] / "BENCHMARK.json").read_text())
+    traffic = next(w for w in bench["workloads"] if w["name"] == "poly_paths_336")["traffic"]
+    (ep,) = epoch_inputs(traffic, 336, RES, 0, range(1))
+    pos3, quats = ep.positions, ep.quaternions
+    if orientation == "identity":
+        quats = np.zeros_like(quats)
+        quats[..., 3] = 1.0
+    tensors = [torch.from_numpy(a) for a in (pos3, quats, RECT)]
+    plan = footprint.path_window_plan(*(t.to(cuda) for t in tensors))
+    assert plan.is_cuda
+    plan = plan.cpu()
+    assert torch.equal(plan, footprint.path_window_plan(*tensors))
+    identity = bool(np.all(np.abs(quats - np.asarray([0, 0, 0, 1])) < 1e-12))
+    assert identity == (orientation == "identity")
+    ext = pos3[..., :2].max(axis=1) - pos3[..., :2].min(axis=1)
+    assert tuple(plan[10:12].tolist()) == tuple(ext.max(axis=0).astype(np.float64))
+    group = footprint.path_group_window(RECT, ext, RES, True) if identity else \
+        footprint.path_group_window_exact(RECT, pos3, quats, RES)
+    assert footprint.planned_windows(plan.tolist(), RECT, RES) == (
+        identity, group, footprint.path_block_window(RECT, pos3, RES, identity))
 
 
 def test_footprint_services_card_matches_cpu(cuda):

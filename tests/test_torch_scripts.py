@@ -13,7 +13,9 @@ the CPU at small sizes, against the JAX package's:
   processes) and ``multihost_demo`` in a 2-process gloo world, whose
   verdicts must equal the local evaluator's on the whole map;
 - the public names of every module this slice ports against its JAX
-  counterpart's, each difference listed with its reason.
+  counterpart's, each difference listed with its reason;
+- the port's own measuring scripts, which the JAX package lacks:
+  ``host_profile`` at a small size, and ``ab_pairs``' comparison rule.
 """
 
 import importlib
@@ -34,7 +36,13 @@ import chip_smoke
 from traversability_estimation_tpu.models.estimator import TraversabilityEstimator as JaxEstimator
 from traversability_estimation_tpu.utils.config import EstimatorConfig as JaxConfig
 from traversability_estimation_tpu.utils.sources import SyntheticTerrainSource as JaxSource
-from traversability_estimation_tpu_torch.scripts import online_loop, rollouts, scaling_bench
+from traversability_estimation_tpu_torch.scripts import (
+    ab_pairs,
+    host_profile,
+    online_loop,
+    rollouts,
+    scaling_bench,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 RES = 0.03
@@ -222,6 +230,43 @@ def test_multihost_demo_two_gloo_processes():
     # the demo's terrain (the JAX demo's 5 cm noise) vetoes most paths
     assert lines[0].split(":", 1)[1].strip() == (
         f"{P} paths checked, safe={int(safe.sum())}, mean trav={mean:.3f}")
+
+
+def test_host_profile_cpu_run(tmp_path):
+    """host_profile at a small size on the CPU: the batch's functions by
+    cumulative time, the dispatch planned on the device (path_window_plan),
+    no NumPy planner left on the batch's path."""
+    out = tmp_path / "hp.json"
+    assert host_profile.main(["--device", "cpu", "--map-cells", "64", "--paths", "16",
+                              "--poses", "9", "--epochs", "2", "--warmup", "1", "--top", "200",
+                              "--json", str(out)]) == 0
+    row = json.loads(out.read_text())
+    assert row["epochs"] == 2 and row["poly_batch_ms_p50"] > 0
+    assert row["dispatch"]["evaluator"] == "grouped" and row["dispatch"]["paths"] == 16
+    names = [r["function"] for r in row["functions"]]
+    assert any("path_window_plan" in n for n in names)
+    assert not any(k in n for n in names for k in ("per_path_window_cells", "path_block_window"))
+    cum = [r["cum_ms"] for r in row["functions"]]
+    assert cum == sorted(cum, reverse=True)
+
+
+def test_ab_pairs_claim_rule():
+    """ab_pairs' comparison: wins by the metric's direction, ties for
+    neither side, a claim only with nine tenths of the pairs won and the
+    medians apart by more than the parent's quartile spread."""
+    parent = [10.0, 11.0, 12.0, 10.5, 11.2, 10.8, 11.9, 10.1, 10.4, 11.0]
+    faster = [6.0, 6.5, 7.0, 6.2, 6.1, 6.8, 6.9, 6.3, 6.0, 6.4]
+    r = ab_pairs.compare(parent, faster, "lower")
+    assert (r["wins"], r["losses"], r["claimable"]) == (10, 0, True)
+    assert r["parent_quartiles"][1] == 10.9 and r["change_quartiles"][1] == 6.35
+    assert ab_pairs.compare(parent, faster, "higher")["wins"] == 0
+    # one loss and one tie in ten: 8 wins, short of nine tenths
+    near = faster[:8] + [parent[8] + 1.0, parent[9]]
+    r = ab_pairs.compare(parent, near, "lower")
+    assert (r["wins"], r["losses"], r["claimable"]) == (8, 1, False)
+    # every pair won, by less than the parent's own spread
+    r = ab_pairs.compare(parent, [p - 0.01 for p in parent], "lower")
+    assert r["wins"] == 10 and not r["claimable"]
 
 
 def _jax_script(name):

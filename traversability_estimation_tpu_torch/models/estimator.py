@@ -259,32 +259,34 @@ def _online_tick(
 
 
 def _dispatch_polygonal(
-    query_state, pos3, quats, n_poses, fp, resolution, conservative, identity,
+    query_state, pos3, quats, n_poses, fp, resolution, conservative,
     stats_out: Optional[dict] = None,
 ):
     """Pick the grouped (per-path window) or the per-segment polygonal
-    evaluator from host-visible batch statistics; returns (safe, trav, area)
-    tensors on the query state's device.
+    evaluator; returns (safe, trav, area) tensors on the query state's
+    device.
 
-    pos3, quats, fp are host arrays: the window planners read them here, and
-    the evaluator uploads them once. When `stats_out` is given it is filled
-    with which evaluator ran and why: the slower per-segment evaluator (a
-    non-convex footprint, a per-path window past ``_GROUPED_ELEMS_CAP``) is
-    silent in the results."""
+    pos3 (float32), quats and fp (float32) are host arrays, uploaded here
+    once: ``fp_ops.path_window_plan`` reduces the window planners' inputs on
+    the uploaded tensors to one small fetch, and the evaluator reads the same
+    tensors. When `stats_out` is given it is filled with which evaluator ran
+    and why: the slower per-segment evaluator (a non-convex footprint, a
+    per-path window past ``_GROUPED_ELEMS_CAP``) is silent in the results."""
+    dev = query_state.device
+    pos3_t = torch.as_tensor(pos3, device=dev)
+    # the caller's quaternion dtype, as the NumPy planners read it; the
+    # evaluators round it to float32 on the device
+    quats_t = torch.as_tensor(
+        quats, dtype=torch.float32 if quats.dtype == np.float32 else torch.float64, device=dev)
+    fp_t = torch.as_tensor(fp, device=dev)
+    plan = fp_ops.path_window_plan(pos3_t, quats_t, fp_t).cpu().tolist()
+    identity, gw, bw = fp_ops.planned_windows(plan, fp, resolution)
     convex = fp_ops.is_convex_polygon(fp)
     translate_only = identity and not conservative and convex
-    ext = pos3[..., :2].max(axis=1) - pos3[..., :2].min(axis=1)  # (P, 2)
-    if identity:
-        gw = fp_ops.path_group_window(fp, ext, resolution, True)
-    else:
-        # rotated batches: the exact per-path vertex bbox from the realised
-        # yaws, not pose extent + worst-case circumradius
-        gw = fp_ops.path_group_window_exact(fp, pos3, quats, resolution)
     B = pos3.shape[0]
     # block-window mode, per-(path, 8-segment-block) windows: the middle tier
     # when the per-path window exceeds the cap (long paths) and the block
     # window does not
-    bw = fp_ops.path_block_window(fp, pos3, resolution, identity)
     use_blocks = (
         pos3.shape[1] > 2
         and gw[0] * gw[1] * B > _GROUPED_ELEMS_CAP
@@ -307,7 +309,7 @@ def _dispatch_polygonal(
         )
     if grouped:
         return fp_ops.check_polygonal_paths_grouped(
-            query_state, pos3, quats, n_poses, fp, gw, bool(conservative), translate_only,
+            query_state, pos3_t, quats_t, n_poses, fp_t, gw, bool(conservative), translate_only,
             bw if use_blocks else None,
         )
     seg = np.linalg.norm(np.diff(pos3[..., :2], axis=1), axis=-1)
@@ -316,7 +318,7 @@ def _dispatch_polygonal(
         fp, seg_max, resolution, conservative, identity_orientation=identity
     )
     return fp_ops.check_polygonal_paths(
-        query_state, pos3, quats, n_poses, fp, window, bool(conservative), translate_only
+        query_state, pos3_t, quats_t, n_poses, fp_t, window, bool(conservative), translate_only
     )
 
 
@@ -641,7 +643,8 @@ class TraversabilityEstimator:
             return _unfused()
 
         # polygonal mode: resolve the grouped evaluator's static dispatch on
-        # the host exactly as _dispatch_polygonal would
+        # the host with the NumPy planners (the integers _dispatch_polygonal
+        # plans on the device; planning there would sync inside the tick)
         fp_np = None
         pwindow = None
         translate_only = False
@@ -957,13 +960,11 @@ class TraversabilityEstimator:
         )
 
     def _polygonal_batch(self, epoch, positions, quaternions, n_poses, footprint, conservative):
-        quats_np = np.asarray(quaternions)
-        identity = bool(np.all(np.abs(quats_np - np.asarray([0, 0, 0, 1])) < 1e-12))
         stats: Dict = {}
         out = _dispatch_polygonal(
-            epoch.state, np.asarray(positions, np.float32), quats_np,
+            epoch.state, np.asarray(positions, np.float32), np.asarray(quaternions),
             np.asarray(n_poses), np.asarray(footprint, np.float32),
-            self.config.chain.resolution, conservative, identity, stats_out=stats,
+            self.config.chain.resolution, conservative, stats_out=stats,
         )
         self._record_polygonal_dispatch(stats)
         return out

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from traversability_estimation_tpu_torch.grid.geometry import (
     line_cells_batch,
@@ -1039,6 +1040,100 @@ def path_block_window(
         ex = max(ex, float(e[:, 0].max()) / 2)
         ey = max(ey, float(e[:, 1].max()) / 2)
     return _extent_window(fp, ex, ey, resolution, identity_orientation)
+
+
+def path_window_plan(
+    positions: torch.Tensor,
+    quaternions: torch.Tensor,
+    footprint: torch.Tensor,
+) -> torch.Tensor:
+    """What the polygonal dispatch's window planners read from the pose
+    batch, reduced on the batch's device to a float64 (14,) tensor
+
+    [min q (4), max q (4), reach (2), ext (2), block_ext (2)]
+
+    - each quaternion component's least and largest value: the host test
+      ``|q - (0, 0, 0, 1)| < 1e-12`` everywhere holds when it holds for
+      them (``|w - 1|`` rounded is largest at an end of w's range);
+    - reach: the largest ``per_path_window_cells`` reach per axis: a
+      path's exact vertex bbox around its pose-bbox anchor;
+    - ext: the largest pose extent (max - min over a path's poses, in
+      float32) per axis, ``path_group_window``'s input;
+    - block_ext: the largest extent of the poses of any ``SEG_BLOCK``
+      consecutive segments (in float64), ``path_block_window``'s.
+
+    ``planned_windows`` turns one fetch of it into the planners' windows,
+    with their integers: each step repeats their dtype and order as a
+    separate eager op (float64 ``*``, ``+`` and ``/`` are correctly rounded
+    on every engine, negation, ``min`` and ``max`` exact), and the window
+    cells, monotone in the reach, are rounded on the host from the largest
+    one. The one division is of two tensors: CUDA multiplies by the
+    reciprocal of a Python-number divisor, and ``number / tensor`` is a
+    reciprocal times the number. A minimum is kept as the maximum of the
+    negated values, so x and y, highs and lows share each op, and a sum of
+    two products may run in the other order (IEEE addition commutes).
+
+    positions (P, N, >=2) float32, quaternions (P, N, 4) of the caller's
+    dtype, footprint (V, 2) float32, on one device; padded poses repeat the
+    last valid pose.
+    """
+    f64 = torch.float64
+    q = quaternions.to(f64)
+    # the planar rows of transform_footprint, as per_path_window_cells
+    # computes them: the diagonal [r00, r11] = 1 - s [yy + zz, xx + zz], the
+    # others [r01, r10] = s [xy - zw, xy + zw]
+    qq = q * q
+    n = qq[..., 0] + qq[..., 1] + qq[..., 2] + qq[..., 3]
+    rotates = n > 0.0
+    s = ((rotates * 2.0) / (n + ~rotates))[..., None]  # 2 / n where n > 0, else 0 / 1
+    diag = 1 - s * (qq[..., :2].flip(-1) + qq[..., 2:3])
+    xy_zw = q[..., 0::2] * q[..., 1::2]
+    off = s * torch.stack([xy_zw[..., 0] - xy_zw[..., 1], xy_zw[..., 0] + xy_zw[..., 1]], -1)
+    # vertex rows [r00 fx + r01 fy, r11 fy + r10 fx] (P, N, 2, V)
+    fp_t = footprint.T
+    verts = diag[..., None] * fp_t + off[..., None] * fp_t.flip(0)
+    # per pose [[hi_x, hi_y], [-lo_x, -lo_y]] of its vertices, then of its
+    # neighbours' too
+    reach = torch.stack([verts, -verts], 2).amax(-1)  # (P, N, 2, 2)
+    reach = F.pad(reach, (0, 0, 0, 0, 1, 1), value=-math.inf).unfold(1, 3, 1).amax(-1)
+    signed = torch.stack([positions, -positions], 2)[..., :2]  # float32 [[x, y], [-x, -y]]
+    far = (signed + reach).amax(1)  # [vert_hi, -vert_lo] (P, 2, 2), float64
+    span = signed.amax(1)  # [max, -min] of the poses (P, 2, 2), float32
+    anchor = 0.5 * (span[:, 0].to(f64) - span[:, 1])
+    reach = torch.maximum(far[:, 0] - anchor, far[:, 1] + anchor).amax(0)
+
+    ext = (span[:, 0] + span[:, 1]).amax(0)
+
+    # path_block_window's blocks: poses [b0, b0 + SEG_BLOCK] of b0 = 0,
+    # SEG_BLOCK, ...; the last pose repeated fills the last block
+    N = positions.shape[1]
+    fill = -(-max(N - 1, 1) // SEG_BLOCK) * SEG_BLOCK + 1 - N
+    padded = torch.cat([signed, signed[:, -1:].expand(-1, fill, -1, -1)], 1)
+    blocks = padded.unfold(1, SEG_BLOCK + 1, SEG_BLOCK).amax(-1)  # (P, blocks, 2, 2)
+    block_ext = (blocks[:, :, 0].to(f64) + blocks[:, :, 1]).amax((0, 1))
+
+    q_min, q_max = torch.aminmax(q.flatten(0, 1), dim=0)
+    return torch.cat([q_min, q_max, reach, ext.to(f64), block_ext])
+
+
+def planned_windows(plan, footprint: np.ndarray, resolution: float):
+    """The host end of ``path_window_plan``: from its fetched values,
+    (identity, the group window, the block window) as the NumPy planners
+    give them: ``path_group_window`` of the pose extents for an identity
+    batch, else ``path_group_window_exact`` (the exact vertex bbox of the
+    realised yaws, not pose extent + worst-case circumradius);
+    ``path_block_window``."""
+    q_min, q_max = plan[:4], plan[4:8]
+    reach_x, reach_y, ext_x, ext_y, block_x, block_y = plan[8:]
+    off_identity = [abs(v) for v in q_min[:3] + q_max[:3]]
+    off_identity += [abs(q_min[3] - 1.0), abs(q_max[3] - 1.0)]
+    identity = all(d < 1e-12 for d in off_identity)  # False for a NaN
+    if identity:
+        group = path_group_window(footprint, np.float64([[ext_x, ext_y]]), resolution, True)
+    else:
+        group = (_window_cells(reach_x, resolution), _window_cells(reach_y, resolution))
+    block = path_group_window(footprint, np.float64([[block_x, block_y]]), resolution, identity)
+    return identity, group, block
 
 
 def polygon_window_cells(
