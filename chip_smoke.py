@@ -6,7 +6,7 @@ CUDA device and the CUDA toolkit (``nvcc``); without a device it exits 1
 before printing any result.
 
 Phases (any failure exits non-zero):
-1. the card's name and power limit; build both kernels from ``csrc/``;
+1. the card's name and power limit; build the three kernels from ``csrc/``;
    each kernel's ptxas report, launch geometry, and resident blocks and
    warps per SM;
 2. kernel 1 (fused map update) against its plain torch version on the card:
@@ -32,15 +32,38 @@ Phases (any failure exits non-zero):
    ``check_polygonal_paths_batch`` with identity quaternions, the same with
    the conservative sweep, and with a random yaw per pose; a non-convex L
    footprint on 128 of the paths (the per-segment evaluator); a few
-   polygonal FootprintPaths; both dense footprint services. Both kernels
-   must have launched (kernel 2 through ``traversability_footprint_circle``).
+   polygonal FootprintPaths; both dense footprint services. The three
+   kernels must have launched (kernel 2 through
+   ``traversability_footprint_circle``, kernel 3 for the grouped batches).
    Bars against the same run on the CPU: is_safe and the dispatch statistics
    equal, area within rtol 1e-5, traversability within 2e-5, dense layers'
    ok equal and scores within 1e-5; the dispatch's window plan
    (``path_window_plan``) on the card equal to the NumPy planners' integers
-   for the identity and the random-yaw batch. CUDA-event times of each batch;
+   for the identity and the random-yaw batch. CUDA-event times of each batch.
+   5b. kernel 3 (the grouped polygonal evaluator, ``csrc/poly_paths.cu``)
+   against its plain version on the card: the 1024 x 50 batches with
+   identity quaternions, a random yaw, and conservative with a random yaw;
+   1024 straight 6.4 m paths whose per-path window exceeds the grouped cap
+   (the block tier); ragged pose counts, 16 of them 1; paths wholly and
+   partly off the map; a map of only unknown cells; a convex octagon,
+   conservative (32 hull points), with its slots in shared memory and,
+   forced, in the global scratch (so too the block tier); a convex 700-gon
+   (1,400 ring points, past the shared memory: global slots by itself).
+   Bars: one launch per batch; is_safe, each ring's fail and cell count
+   equal; each ring's cell sum within rtol 1e-5 (plus 1e-7 a cell) and its
+   area weight within 1e-5 of the larger of the weight and the footprint's
+   area; traversability within 2e-5 and area within rtol 1e-5, each scaled
+   by the path's sum|w| / |sum w| over its segments' area weights w (1
+   where no weight is negative; the conservative sweep's are of mixed sign,
+   and so is the weight of a hull that the collinearity band collapses, as
+   on a path heading along a footprint edge). CUDA-event times of kernel 3,
+   of its wrapper call and of the plain version at 1024 x 50, with the
+   bound from the work the kernel counts (hull point tests, searches);
 6. a 2048^2 map (> 4M cells: the query-crop path) with one path batch;
-   both kernels bit-identical to their plain versions there, and timed;
+   both kernels bit-identical to their plain versions there, and timed; a
+   served-size polygonal batch there (8 paths x 10 poses across the map, a
+   window of millions of cells): kernel 3 against its plain version, and
+   the times of the kernel, the batch and the plain version;
 7. the online loop (config 4): a 50 m x 50 m map at 0.03 m (1667 x 1667
    cells, all unknown at first), the robot on a circle of radius 12.5 m, a
    4 m x 4 m submap (133 x 133 cells) and 256 paths x 10 poses per tick
@@ -131,8 +154,8 @@ Phases (any failure exits non-zero):
    is printed beside (not a bar); (d)
    ``scripts/scaling_bench --sizes 1`` over ``nccl``;
 11. a ``kernels`` JSON line (launches summed over phases 4, 5, 7, 8, 9 and
-   10), the card line, and the contract line ``{"ok": true, "device":
-   {...}}`` last.
+   10; kernel 3 over phases 5, 7, 8, 9 and 10), the card line, and the
+   contract line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -264,7 +287,7 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
     """Phase 8: the serving path over a real socket, on the card, held to the
     same requests against nodes on the CPU (see the module docstring).
     `zero_counts` / `counts`: the kernels' launch counters. Returns the
-    launches of both kernels over the phase."""
+    launches of the three kernels over the phase."""
     import torch
 
     import traversability_estimation_tpu_torch as port
@@ -439,12 +462,14 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
         cpu_s = time.perf_counter() - t0
 
     a_counts = stages["node A, updates and paths"]
-    if a_counts != {"fused_update": N_UPDATES, "circle_field": N_UPDATES}:
-        fail(f"serving path: kernel 1 must launch once per update request and kernel 2 once "
-             f"per map epoch: {a_counts} over {N_UPDATES} updates")
+    if a_counts != {"fused_update": N_UPDATES, "circle_field": N_UPDATES,
+                    "poly_paths": N_UPDATES}:
+        fail(f"serving path: kernel 1 must launch once per update request, kernel 2 once "
+             f"per map epoch and kernel 3 once per request's polygonal batch: {a_counts} over "
+             f"{N_UPDATES} updates")
     # node B: the pushed map, the loaded bag and the update after the reload;
     # one circle field for the path request
-    if stages["node B"] != {"fused_update": 3, "circle_field": 1}:
+    if stages["node B"] != {"fused_update": 3, "circle_field": 1, "poly_paths": 0}:
         fail(f"serving path: node B launched {stages['node B']}, expected 3 updates and 1 field")
 
     def compare_paths(got_resp, want_resp, label):
@@ -509,7 +534,247 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
     for kind, ms in walls.items():
         log(f"serving request ({card_line}): {kind}: {len(ms)} x, wall median "
             f"{np.median(ms):.3f} ms, max {np.max(ms):.3f} ms")
-    return {k: sum(st[k] for st in stages.values()) for k in ("fused_update", "circle_field")}
+    return {k: sum(st[k] for st in stages.values())
+            for k in ("fused_update", "circle_field", "poly_paths")}
+
+
+# the kernel-3 phase's batches beyond phase 5's: block-tier paths, convex
+# octagon (conservative: 32 hull points), a convex 700-gon (1,400 ring
+# points: past the shared memory, its slots in the global scratch)
+K3_BLOCK_PATHS, K3_BLOCK_POSES, K3_BLOCK_STEP = 1024, 128, 0.05
+K3_OCTAGON_PATHS = 256
+K3_MANY_VERTICES, K3_MANY_PATHS, K3_MANY_POSES = 700, 64, 20
+
+
+def poly_kernel_phase(card_line, res, est, rect, pos3, quats_id, quats_rot, device_ms, cuda_ms):
+    """Phase 5b: kernel 3 against its plain version on the card (see the
+    module docstring). Returns {max_abs_err, ms, plain_ms, bound_ms,
+    bound_by} at the 1024 x 50 random-yaw batch."""
+    import torch
+
+    from traversability_estimation_tpu_torch import EstimatorConfig, TraversabilityEstimator
+    from traversability_estimation_tpu_torch.models.estimator import _GROUPED_ELEMS_CAP
+    from traversability_estimation_tpu_torch.ops import footprint, poly_kernel
+    from traversability_estimation_tpu_torch.utils import roofline
+
+    dev = torch.device("cuda")
+    qs = est.query_state
+    P, N = pos3.shape[:2]
+    full = np.full((P,), N, np.int32)
+
+    def windows(b_pos, b_quats, fp, identity):
+        ext = b_pos[..., :2].max(axis=1) - b_pos[..., :2].min(axis=1)
+        group = footprint.path_group_window(fp, ext, res, True) if identity else \
+            footprint.path_group_window_exact(fp, b_pos, b_quats, res)
+        return group, footprint.path_block_window(fp, b_pos, res, identity)
+
+    def ragged(b_pos, b_quats, n_poses):
+        b_pos, b_quats = b_pos.copy(), b_quats.copy()
+        for p, n in enumerate(n_poses):
+            b_pos[p, n:] = b_pos[p, n - 1]
+            b_quats[p, n:] = b_quats[p, n - 1]
+        return b_pos, b_quats, n_poses
+
+    rng = np.random.default_rng(11)
+    # block tier: straight 6.4 m paths heading along their yaw, many leaving the map
+    heading = rng.uniform(0, 2 * np.pi, K3_BLOCK_PATHS)
+    k = np.arange(K3_BLOCK_POSES)
+    starts = rng.uniform(-3.0, 3.0, (K3_BLOCK_PATHS, 2))
+    xy = starts[:, None] + K3_BLOCK_STEP * k[None, :, None] * np.stack(
+        [np.cos(heading), np.sin(heading)], -1)[:, None]
+    b_pos = np.concatenate([xy, np.zeros(xy.shape[:2] + (1,))], -1).astype(np.float32)
+    b_quats = np.zeros(b_pos.shape[:2] + (4,), np.float32)
+    b_quats[..., 2] = np.sin(heading / 2)[:, None]
+    b_quats[..., 3] = np.cos(heading / 2)[:, None]
+    n_rag = rng.integers(1, N + 1, P).astype(np.int32)
+    n_rag[:16] = 1
+    off = pos3.copy()
+    off[: P // 2, :, 0] += 12.0  # wholly off the 10 m map
+    off[P // 2 :, :, 0] += 5.0  # partly off
+    unknown = TraversabilityEstimator(EstimatorConfig(resolution=res), device=dev)
+    unknown.update(np.full(qs.shape, np.nan, np.float32))
+    octagon = np.float32([[0.4 * np.cos(a), 0.3 * np.sin(a)] for a in np.arange(8) * np.pi / 4])
+    o_p = K3_OCTAGON_PATHS
+    v_p, v_n = K3_MANY_PATHS, K3_MANY_POSES
+    many = np.float32([[0.45 * np.cos(a), 0.3 * np.sin(a)]
+                       for a in np.arange(K3_MANY_VERTICES) * -2 * np.pi / K3_MANY_VERTICES])
+    # name -> (query state, positions, quaternions, n_poses, footprint, conservative,
+    # identity, block tier, shared memory the launch may use)
+    smem = poly_kernel.SMEM_LIMIT
+    batches = {
+        "identity 1024x50": (qs, pos3, quats_id, full, rect, False, True, False, smem),
+        "random yaw 1024x50": (qs, pos3, quats_rot, full, rect, False, False, False, smem),
+        "conservative random yaw 1024x50": (qs, pos3, quats_rot, full, rect, True, False, False,
+                                            smem),
+        f"block tier {K3_BLOCK_PATHS}x{K3_BLOCK_POSES}": (
+            qs, b_pos, b_quats, np.full((K3_BLOCK_PATHS,), K3_BLOCK_POSES, np.int32), rect,
+            False, False, True, smem),
+        "ragged n_poses, random yaw": (qs, *ragged(pos3, quats_rot, n_rag), rect, False, False,
+                                       False, smem),
+        "wholly and partly off the map": (qs, off, quats_id, full, rect, False, True, False,
+                                          smem),
+        "only unknown cells": (unknown.query_state, pos3, quats_rot, full, rect, False, False,
+                               False, smem),
+        f"octagon conservative {o_p}x50": (qs, pos3[:o_p], quats_rot[:o_p], full[:o_p], octagon,
+                                          True, False, False, smem),
+        # the same kernel with its slots in the global scratch: forced here,
+        # taken by itself for the many-vertex footprint below
+        f"octagon conservative {o_p}x50, global slots": (
+            qs, pos3[:o_p], quats_rot[:o_p], full[:o_p], octagon, True, False, False, 0),
+        f"block tier {K3_BLOCK_PATHS}x{K3_BLOCK_POSES}, global slots": (
+            qs, b_pos, b_quats, np.full((K3_BLOCK_PATHS,), K3_BLOCK_POSES, np.int32), rect,
+            False, False, True, 0),
+        f"{K3_MANY_VERTICES}-gon identity {v_p}x{v_n}": (
+            qs, pos3[:v_p, :v_n], quats_id[:v_p, :v_n], np.full((v_p,), v_n, np.int32), many, False,
+            True, False, smem),
+    }
+    summary = {"max_abs_err": 0.0}
+    for name, (state, b_pos, b_quats, n_poses, fp, conservative, identity, blocks, smem_limit) \
+            in batches.items():
+        group, block = windows(b_pos, b_quats, fp, identity)
+        n_paths = b_pos.shape[0]
+        if blocks and not (group[0] * group[1] * n_paths > _GROUPED_ELEMS_CAP
+                           >= block[0] * block[1] * n_paths):
+            fail(f"kernel 3 {name}: windows {group} / {block} are not the block tier's")
+        args = (state, torch.as_tensor(b_pos, device=dev), torch.as_tensor(b_quats, device=dev),
+                n_poses, fp, group, conservative, identity and not conservative,
+                block if blocks else None)
+        before = poly_kernel.check_polygonal_paths_grouped.launches
+        if smem_limit == poly_kernel.SMEM_LIMIT:
+            got = poly_kernel.check_polygonal_paths_grouped(*args, return_segments=True)
+        else:
+            got = poly_kernel.launch(poly_kernel.kernel_inputs(*args, smem_limit=smem_limit),
+                                     return_segments=True)
+        torch.cuda.synchronize()
+        launched = poly_kernel.check_polygonal_paths_grouped.launches - before
+        want = footprint.check_polygonal_paths_grouped(*args, return_segments=True)
+        if launched != 1:
+            fail(f"kernel 3 {name}: {launched} launches for one batch")
+        slots = "shared" if poly_kernel.launch_plan(
+            n_paths, len(fp), 1, conservative, smem_limit).smem_bytes else "global"
+        (safe, trav, area, fail_r, cells, sums, w_got), (safe_w, trav_w, area_w, fail_w, cells_w,
+                                                         sums_w, weights) = got, want
+        if not (torch.equal(safe, safe_w) and torch.equal(fail_r, fail_w)
+                and torch.equal(cells, cells_w)):
+            fail(f"kernel 3 {name}: is_safe differs on {int((safe != safe_w).sum())} paths, "
+                 f"ring fail on {int((fail_r != fail_w).sum())} rings, cell counts on "
+                 f"{int((cells != cells_w).sum())} rings")
+        # the path's area is the sum of its segments' area weights, which the
+        # conservative sweep (the hull less a doubled polygon1) and a hull
+        # the collinearity band collapses make of mixed sign: float32
+        # rounding of a weight then weighs sum|w| / |sum w| in the
+        # traversability and sum|w| in the area. With weights >= 0 the bars
+        # are traversability within 2e-5 and area within rtol 1e-5
+        n_t = torch.as_tensor(n_poses, device=dev)
+        valid = torch.arange(1, b_pos.shape[1], device=dev)[None, :] < n_t[:, None]
+        w_seg = torch.where(valid, weights[:, 1:], 0.0)
+        single = n_t == 1
+        abs_sum = torch.where(single, weights[:, 0].abs(), w_seg.abs().sum(1))
+        net = torch.where(single, weights[:, 0].abs(), w_seg.sum(1).abs())
+        cond = abs_sum / net.clamp_min(1e-12)
+        trav_err = (trav - trav_w).abs()
+        area_err = (area - area_w).abs()
+        if bool((trav_err > 2e-5 * cond).any()) or bool((area_err > 1e-5 * abs_sum + 1e-6).any()):
+            fail(f"kernel 3 {name}: traversability differs by {float(trav_err.max()):g}, area "
+                 f"by {float(area_err.max()):g} (sum|w| / |sum w| up to {float(cond.max()):g})")
+        # each ring on its own: the sum of its cells (values in [0, 1]) within
+        # rtol 1e-5 plus 1e-7 a cell; its area weight within 1e-5 of the
+        # larger of the weight and the footprint's area (ring 0's weight):
+        # after the first segment a weight is a hull area less polygon1's,
+        # two areas near the footprint's whose float32 rounding remains
+        sum_err = (sums - sums_w).abs()
+        w_err = (w_got - weights).abs()
+        if bool((sum_err > 1e-5 * sums_w.abs() + 1e-7 * cells_w).any()) or bool(
+                (w_err > 1e-5 * torch.maximum(weights.abs(), weights[:, :1].abs())).any()):
+            fail(f"kernel 3 {name}: a ring's cell sum differs by {float(sum_err.max()):g}, its "
+                 f"area weight by {float(w_err.max()):g}")
+        summary["max_abs_err"] = max(summary["max_abs_err"], float(trav_err.max()))
+        if not bool(torch.isfinite(trav).all() & torch.isfinite(area).all()):
+            fail(f"kernel 3 {name}: non-finite values")
+        log(f"kernel 3 {name}: one launch, {slots} slots, window {block if blocks else group}; "
+            f"vs the plain version on the card: is_safe equal ({int(safe.sum())} of {n_paths} "
+            f"safe), ring fail and cell counts exact ({int(cells.sum())} cells), ring sums max "
+            f"diff {float(sum_err.max()):g}, ring weights {float(w_err.max()):g}, trav max diff "
+            f"{float(trav_err.max()):g}, area max diff {float(area_err.max()):g} (sum|w| / "
+            f"|sum w| up to {float(cond.max()):.4g})")
+
+    for name in ("identity 1024x50", "random yaw 1024x50", "conservative random yaw 1024x50"):
+        state, b_pos, b_quats, n_poses, fp, conservative, identity, _, _ = batches[name]
+        group, _ = windows(b_pos, b_quats, fp, identity)
+        args = (state, torch.as_tensor(b_pos, device=dev), torch.as_tensor(b_quats, device=dev),
+                n_poses, fp, group, conservative, identity and not conservative)
+        inputs = poly_kernel.kernel_inputs(*args)
+        ms = device_ms(lambda: poly_kernel.launch(inputs), 50)
+        call_ms = cuda_ms(lambda: poly_kernel.check_polygonal_paths_grouped(*args), 20)
+        plain_ms = cuda_ms(lambda: footprint.check_polygonal_paths_grouped(*args), 3, 1)
+        cells = int(poly_kernel.launch(inputs, True)[4].sum())
+        hull_tests, searches = poly_kernel.work_counts(inputs)
+        H, W = state.shape
+        gpad = max(group)
+        bound_ms, bound_by = roofline.bound(
+            poly_kernel.kernel_bytes(P, N, len(fp), (H + 2 * gpad) * (W + 2 * gpad)),
+            poly_kernel.kernel_operations(P, N, len(fp), *group, conservative,
+                                          identity and not conservative, cells, hull_tests,
+                                          searches))
+        plan = inputs.plan
+        log(f"kernel 3 {name} ({card_line}): {ms:.4f} ms device time, bound {bound_ms:.5f} ms "
+            f"({bound_by}; {hull_tests} hull point tests, {searches} searches, {cells} cells); "
+            f"wrapper call {call_ms:.4f} ms; plain version {plain_ms:.3f} ms; grid "
+            f"{plan.grid} x block {plan.block}, smem {plan.smem_bytes} B, "
+            f"{poly_kernel.occupancy(plan)} resident blocks/SM")
+        if name == "random yaw 1024x50":
+            summary.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return summary
+
+
+# phase 6's served-size polygonal batch: paths x poses, from one corner of
+# the 2048^2 map to the other (a window of millions of cells, one block of
+# kernel 3 per path)
+SERVED_PATHS, SERVED_POSES = 8, 10
+
+
+def served_polygonal_batch(card_line, res, est, rect, device_ms, cuda_ms):
+    """Phase 6's polygonal batch of a served request's size on the 2048^2
+    map: dispatched to kernel 3 with a window of millions of cells, held to
+    the plain version on the card, and timed (kernel, batch, plain)."""
+    import torch
+
+    from traversability_estimation_tpu_torch.ops import footprint, poly_kernel
+
+    rng = np.random.default_rng(21)
+    P, N = SERVED_PATHS, SERVED_POSES
+    ends = (rng.uniform(-24.0, -20.0, (P, 2)), rng.uniform(20.0, 24.0, (P, 2)))
+    t = np.linspace(0.0, 1.0, N)[None, :, None]
+    xy = ends[0][:, None] + t * (ends[1] - ends[0])[:, None]
+    pos3 = np.concatenate([xy, np.zeros((P, N, 1))], -1).astype(np.float32)
+    yaw = rng.uniform(0, 2 * np.pi, (P, N))
+    quats = np.zeros((P, N, 4), np.float32)
+    quats[..., 2] = np.sin(yaw / 2)
+    quats[..., 3] = np.cos(yaw / 2)
+    n_poses = np.full((P,), N, np.int32)
+    before = poly_kernel.check_polygonal_paths_grouped.launches
+    est.check_polygonal_paths_batch(pos3, quats, n_poses, rect)
+    torch.cuda.synchronize()
+    st = dict(est.last_polygonal_dispatch)
+    if (st["evaluator"], st["reason"], st["block_window"]) != ("grouped", "ok", None) or \
+            poly_kernel.check_polygonal_paths_grouped.launches != before + 1:
+        fail(f"served-size polygonal batch: dispatched as {st}, not one launch of kernel 3")
+    gw = st["group_window"]
+    args = (est.query_state, pos3, quats, n_poses, rect, gw)
+    inputs = poly_kernel.kernel_inputs(*args)
+    got = poly_kernel.launch(inputs, return_segments=True)
+    want = footprint.check_polygonal_paths_grouped(*args, return_segments=True)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+            and torch.equal(got[4], want[4])):
+        fail("served-size polygonal batch: is_safe or a ring's fail or cell count differs from "
+             "the plain version")
+    ms = device_ms(lambda: poly_kernel.launch(inputs), 20)
+    batch_ms = cuda_ms(lambda: est.check_polygonal_paths_batch(pos3, quats, n_poses, rect), 10)
+    plain_ms = cuda_ms(lambda: footprint.check_polygonal_paths_grouped(*args), 3, 1)
+    log(f"served-size polygonal batch ({card_line}): {P} paths x {N} poses, window {gw} "
+        f"({gw[0] * gw[1]} cells), {P} blocks; equal to the plain version in is_safe and every "
+        f"ring's fail and cell count ({int(got[4].sum())} cells); kernel 3 {ms:.4f} ms device "
+        f"time, the batch {batch_ms:.4f} ms, the plain version {plain_ms:.3f} ms")
 
 
 def free_port() -> int:
@@ -556,10 +821,11 @@ def tiled_phase(card_line, res, terrain, cfg, source, zero_counts, counts, timer
     radius, offset = 0.3, cfg.footprint.circular_footprint_offset
     rmax = radius + offset
     halo, fh = sh.required_halo(chain, veto), sh.field_halo(rmax, res)
-    launches = {"fused_update": 0, "circle_field": 0}
+    launches = {"fused_update": 0, "circle_field": 0, "poly_paths": 0}
 
     def tally(want, label):
         got = counts()
+        want = {"poly_paths": 0, **want}  # the tiled path runs no grouped evaluator
         if got != want:
             fail(f"tiled path, {label}: kernel launches {got}, expected {want}")
         for k in launches:
@@ -873,7 +1139,7 @@ ROLLOUT_SAMPLE = 1024
 def drivers_phase(card_line, res, cfg, zero_counts, counts, k1_at, k2_at):
     """Phase 10: the roofline and the user-facing drivers on the card (see
     the module docstring). `k1_at` / `k2_at`: device ms of kernels 1 and 2
-    by (H, W) from the earlier phases. Returns (the launches of both
+    by (H, W) from the earlier phases. Returns (the launches of the three
     kernels over the online-loop and rollout runs, the roofline at 336^2 of
     each kernel: {name: (bound ms, pct_sol)})."""
     import tempfile
@@ -889,7 +1155,7 @@ def drivers_phase(card_line, res, cfg, zero_counts, counts, k1_at, k2_at):
     from traversability_estimation_tpu_torch.utils.sources import SyntheticTerrainSource
 
     dev = torch.device("cuda")
-    launches = {"fused_update": 0, "circle_field": 0}
+    launches = {"fused_update": 0, "circle_field": 0, "poly_paths": 0}
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
 
     # (a) the card's peaks, and the JAX package's work counts priced at them
@@ -948,7 +1214,8 @@ def drivers_phase(card_line, res, cfg, zero_counts, counts, k1_at, k2_at):
             fail(f"online loop {label}: the row lacks {sorted(missing)}")
         n_ticks = row["warmup_ticks"] + row["ticks"]
         want = {"fused_update": n_ticks,
-                "circle_field": 0 if "--footprint" in extra else n_ticks}
+                "circle_field": 0 if "--footprint" in extra else n_ticks,
+                "poly_paths": n_ticks if "--footprint" in extra else 0}
         if got != want:
             fail(f"online loop {label}: kernel launches {got}, expected {want}")
         depth = 3 if row["free_run"] else 1
@@ -990,7 +1257,7 @@ def drivers_phase(card_line, res, cfg, zero_counts, counts, k1_at, k2_at):
     got = counts()
     if row is None or len(record["steps"]) != steps:
         fail("rollouts: no traversable start, or steps missing")
-    want = {"fused_update": 1 + steps, "circle_field": 1 + steps}
+    want = {"fused_update": 1 + steps, "circle_field": 1 + steps, "poly_paths": 0}
     if got != want:
         fail(f"rollouts: kernel launches {got}, expected {want}: the initial update and the "
              "start check's whole-map field, then one update and one query-crop field a step")
@@ -1146,7 +1413,12 @@ def main() -> None:
             TraversabilityEstimator,
         )
         from traversability_estimation_tpu_torch.kernels import build
-        from traversability_estimation_tpu_torch.ops import field_kernel, footprint, update_kernel
+        from traversability_estimation_tpu_torch.ops import (
+            field_kernel,
+            footprint,
+            poly_kernel,
+            update_kernel,
+        )
         from traversability_estimation_tpu_torch.ops.veto import required_halo
         from traversability_estimation_tpu_torch.utils import roofline
     except ImportError as e:
@@ -1183,6 +1455,8 @@ def main() -> None:
     k2_plan = field_kernel.device_tables(0.3 + cfg.footprint.circular_footprint_offset, res, H, W,
                                          dev)[0]
     k2_occ = field_kernel.occupancy(k2_plan)
+    k3_plan = poly_kernel.launch_plan(1024, 4, 76, False)  # the 1024 x 50 random-yaw batch
+    k3_occ = poly_kernel.occupancy(k3_plan)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def launch_line(grid, block, smem, occ, warps):
@@ -1202,6 +1476,8 @@ def main() -> None:
             k1_plan.warps[1]),
         "circle_field": launch_line(k2_plan.grid, k2_plan.block, k2_plan.smem_bytes, k2_occ,
                                     k2_plan.warps),
+        "poly_paths": launch_line(k3_plan.grid, k3_plan.block, k3_plan.smem_bytes, k3_occ,
+                                  k3_plan.warps) + " (1024 paths)",
     }
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
@@ -1209,8 +1485,8 @@ def main() -> None:
                 log(f"ptxas {name}: {line.strip()}")
     for name, line in geometry.items():
         log(f"launch {name} at {H}x{W}: {line}")
-    if min(*k1_occ, k2_occ) < 1:
-        fail(f"a kernel cannot be resident on an SM: {k1_occ}, {k2_occ}")
+    if min(*k1_occ, k2_occ, k3_occ) < 1:
+        fail(f"a kernel cannot be resident on an SM: {k1_occ}, {k2_occ}, {k3_occ}")
 
     def cuda_ms(fn, reps, warmup=2):
         for _ in range(warmup):
@@ -1544,6 +1820,7 @@ def main() -> None:
 
     update_kernel.fused_update.launches = 0
     field_kernel.dense_circle_field.launches = 0
+    poly_kernel.check_polygonal_paths_grouped.launches = 0
     t0 = time.perf_counter()
     outs, stats, few_out, layers = drive_polygonal(est)
     torch.cuda.synchronize()
@@ -1551,6 +1828,7 @@ def main() -> None:
     poly_launches = {
         "fused_update": update_kernel.fused_update.launches,
         "circle_field": field_kernel.dense_circle_field.launches,
+        "poly_paths": poly_kernel.check_polygonal_paths_grouped.launches,
     }
     log(f"polygonal path launches: {poly_launches} (first run {poly_wall:.2f} s wall)")
     if min(poly_launches.values()) < 1:
@@ -1627,6 +1905,12 @@ def main() -> None:
     if not torch.equal(ok_g.cpu(), ok_r):
         fail("dense_polygon_field: ok differs from the CPU run")
 
+    # ---- 5b. kernel 3 against its plain version ----------------------------
+    t0 = time.perf_counter()
+    k3 = poly_kernel_phase(card_line, res, est, rect, pos3, quats_id, quats_rot, device_ms,
+                           cuda_ms)
+    log(f"kernel 3 phase: {time.perf_counter() - t0:.1f} s wall")
+
     poly_ms = {}
     for name, (args, *_) in poly_batches.items():
         poly_ms[name] = cuda_ms(lambda: est.check_polygonal_paths_batch(*args), 10)
@@ -1696,6 +1980,7 @@ def main() -> None:
         f"bit-identical to their plain versions; first update + batch {big_wall:.1f} ms wall, "
         f"kernel 1 {big_k1_ms:.4f} ms, kernel 2 (whole map) {big_k2_ms:.4f} ms, path batch "
         f"(crop, field cached) {big_batch_ms:.4f} ms, {int(safe_b.sum())} of {P} safe")
+    served_polygonal_batch(card_line, res, est_big, rect, device_ms, cuda_ms)
 
     # ---- 7. the online loop, config 4 --------------------------------------
     MAP_M, SUB_M, WINDOW_M, ON_P, N_TICKS = 50.0, 4.0, 20.0, 256, 60
@@ -1717,10 +2002,12 @@ def main() -> None:
     def zero_counts():
         update_kernel.fused_update.launches = 0
         field_kernel.dense_circle_field.launches = 0
+        poly_kernel.check_polygonal_paths_grouped.launches = 0
 
     def counts():
         return {"fused_update": update_kernel.fused_update.launches,
-                "circle_field": field_kernel.dense_circle_field.launches}
+                "circle_field": field_kernel.dense_circle_field.launches,
+                "poly_paths": poly_kernel.check_polygonal_paths_grouped.launches}
 
     def check_maps(got, want, label, float_atol):
         """Two traversability maps: the same layers; elevation, the step
@@ -1808,8 +2095,9 @@ def main() -> None:
     online_launches = counts()
     log(f"online loop launches over {N_TICKS} circular ticks: {online_launches} "
         f"(tick 0 unfused on the whole map, {N_TICKS - 1} fused)")
-    if online_launches != {"fused_update": N_TICKS, "circle_field": N_TICKS}:
-        fail(f"both kernels must launch once per tick: {online_launches} over {N_TICKS} ticks")
+    if online_launches != {"fused_update": N_TICKS, "circle_field": N_TICKS, "poly_paths": 0}:
+        fail(f"kernels 1 and 2 must launch once per tick, kernel 3 never: {online_launches} "
+             f"over {N_TICKS} ticks")
     if est_on._max_cells_hwm <= 0:
         fail("the fused tick did not run (no sample-count mark)")
     n_safe = [int(s.sum()) for s, _ in outs_on]
@@ -1871,6 +2159,8 @@ def main() -> None:
                  f"fused marks {fused_ran}")
         if kind == "roaming" and short[kind]["circle_field"] != n_short:
             fail(f"online roaming: kernel 2 launches {short[kind]} over {n_short} ticks")
+        if short[kind]["poly_paths"] != (n_short if kind == "polygonal" else 0):
+            fail(f"online {kind}: kernel 3 launches {short[kind]} over {n_short} ticks")
         est_u = blank(n_cells)
         outs_u, maps_u = drive_online(est_u, near, kind, fused=False, footprint=rect,
                                       keep_maps=(n_short - 1,))
@@ -2032,6 +2322,17 @@ def main() -> None:
          "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": b2, "bound_by": by2, "library_ms": None,
          "sol_bound_ms": sol["dense_circle_field"][0], "pct_sol": sol["dense_circle_field"][1]},
+        # not the port of a TPU kernel: the JAX package's grouped evaluator is
+        # XLA-fused code; its time, bound and plain time at the 1024 x 50
+        # random-yaw batch (phase 5b)
+        {"name": "check_polygonal_paths_grouped", "route": "cuda",
+         "source": "traversability_estimation_tpu_torch/csrc/poly_paths.cu",
+         "replaces": "traversability_estimation_tpu/ops/footprint.py:1208",
+         "launches": poly_launches["poly_paths"] + online_launches["poly_paths"]
+         + serve_launches["poly_paths"] + tiled_launches["poly_paths"]
+         + driver_launches["poly_paths"],
+         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None},
     ]
     log(json.dumps({"kernels": kernels}))
     log(card_line)

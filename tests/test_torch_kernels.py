@@ -8,12 +8,14 @@ machine with the card, which has no JAX (tests/conftest.py imports it):
 shapes (1x1, 5x400, 337x335, 100x133 with 4% holes) test the kernels'
 ragged tiles: every layer must stay bit-identical to the plain version.
 
-The polygonal evaluators are torch ops without a kernel of their own; their
-card cases hold the CUDA estimator to the same estimator on the CPU
-(is_safe and dispatch equal, traversability within 2e-5, area within rtol
-1e-5: only the sums run in another order), and the dense circular service
-must launch kernel 2. Their dispatch's window plan on the card gives the
-NumPy planners' integers on the polygonal cell's own inputs.
+The grouped polygonal evaluator is kernel 3 (``csrc/poly_paths.cu``): its
+cases hold it to its plain version on the card, ring by ring (chip_smoke.py
+phase 5b's batches at a smaller size). The polygonal batch cases hold the
+CUDA estimator to the same estimator on the CPU (is_safe and dispatch
+equal, traversability within 2e-5, area within rtol 1e-5: only the sums run
+in another order), and the dense circular service must launch kernel 2.
+The dispatch's window plan on the card gives the NumPy planners' integers
+on the polygonal cell's own inputs.
 """
 
 import numpy as np
@@ -236,6 +238,114 @@ def test_polygonal_batch_card_matches_cpu(cuda, mode):
     assert torch.equal(safe_g.cpu(), safe_c) and safe_c.any() and not safe_c.all()
     torch.testing.assert_close(trav_g.cpu(), trav_c, rtol=0, atol=2e-5)
     torch.testing.assert_close(area_g.cpu(), area_c, rtol=1e-5, atol=1e-6)
+
+
+OCTAGON = np.float32([[0.4 * np.cos(a), 0.3 * np.sin(a)] for a in np.arange(8) * np.pi / 4])
+# 700 vertices: 1,400 ring points, more than kernel 3's shared memory holds
+MANY_GON = np.float32(
+    [[0.45 * np.cos(a), 0.3 * np.sin(a)] for a in np.arange(700) * -2 * np.pi / 700])
+
+
+def _kernel3_batch(case, P=96, N=20):
+    """chip_smoke.py phase 5b's batches at the test's size: (positions,
+    quaternions, n_poses, footprint, conservative, identity, block tier)."""
+    rng = np.random.default_rng(31)
+    starts = np.float32([0.4, -0.2]) + rng.uniform(-1.6, 1.6, (P, 2))
+    xy = np.concatenate(
+        [starts[:, None], starts[:, None] + np.cumsum(rng.uniform(-0.06, 0.06, (P, N - 1, 2)), 1)],
+        axis=1)
+    yaw = rng.uniform(0, 2 * np.pi, (P, N))
+    if case == "block_tier":
+        # straight 3 m paths heading along their yaw
+        yaw = np.repeat(rng.uniform(0, 2 * np.pi, (P, 1)), 3 * N, 1)
+        N *= 3
+        xy = starts[:, None] + 0.05 * np.arange(N)[None, :, None] * np.stack(
+            [np.cos(yaw), np.sin(yaw)], -1)
+    if case == "off_map":
+        xy[: P // 2, :, 0] += 8.0
+        xy[P // 2 :, :, 0] += 2.2
+    if case == "many_vertices":
+        xy = xy[:16, :8]
+        yaw = yaw[:16, :8]
+        P, N = xy.shape[:2]
+    pos3 = np.concatenate([xy, np.zeros((P, N, 1))], -1).astype(np.float32)
+    identity = case in ("identity", "off_map", "many_vertices")
+    quats = np.zeros((P, N, 4), np.float32)
+    quats[..., 3] = 1.0
+    if not identity:
+        quats[..., 2] = np.sin(yaw / 2)
+        quats[..., 3] = np.cos(yaw / 2)
+    n_poses = np.full((P,), N, np.int32)
+    if case == "ragged":
+        n_poses = rng.integers(1, N + 1, P).astype(np.int32)
+        n_poses[:8] = 1
+        for p in range(P):
+            pos3[p, n_poses[p]:] = pos3[p, n_poses[p] - 1]
+            quats[p, n_poses[p]:] = quats[p, n_poses[p] - 1]
+    fp = {"octagon_conservative": OCTAGON, "global_slots": OCTAGON,
+          "many_vertices": MANY_GON}.get(case, RECT)
+    conservative = case in ("conservative_yaw", "octagon_conservative", "global_slots")
+    return pos3, quats, n_poses, fp, conservative, identity, case == "block_tier"
+
+
+@pytest.mark.parametrize("case", ["identity", "random_yaw", "conservative_yaw", "block_tier",
+                                  "ragged", "off_map", "unknown_map", "octagon_conservative",
+                                  "global_slots", "many_vertices"])
+def test_poly_kernel_matches_plain(cuda, case):
+    """Kernel 3 against its plain version on the card, chip_smoke.py phase
+    5b's bars: one launch; is_safe, each ring's fail and cell count equal;
+    each ring's cell sum within rtol 1e-5 (plus 1e-7 a cell) and its area
+    weight within 1e-5 of the larger of the weight and the footprint's area
+    (a weight after the first segment is the difference of two areas near
+    the footprint's); traversability within 2e-5 and area within rtol 1e-5,
+    scaled by the path's sum|w| / |sum w| over its segments' area weights (1
+    where none is negative; the conservative sweep's are of mixed sign, and
+    so is the weight of a hull that the collinearity band collapses, as on a
+    path heading along a footprint edge). "global_slots": the octagon's
+    slots forced into the global scratch; "many_vertices": a 700-gon, whose
+    slots exceed the shared memory, through the wrapper."""
+    from traversability_estimation_tpu_torch.ops import poly_kernel
+
+    on_card, _ = _estimator_pair(cuda)
+    if case == "unknown_map":
+        on_card = TraversabilityEstimator(EstimatorConfig(resolution=RES), device=cuda)
+        assert on_card.update(np.full((160, 144), np.nan, np.float32), position=(0.4, -0.2))
+    pos3, quats, n_poses, fp, conservative, identity, blocks = _kernel3_batch(case)
+    ext = pos3[..., :2].max(axis=1) - pos3[..., :2].min(axis=1)
+    group = footprint.path_group_window(fp, ext, RES, True) if identity else \
+        footprint.path_group_window_exact(fp, pos3, quats, RES)
+    block = footprint.path_block_window(fp, pos3, RES, identity) if blocks else None
+    args = (on_card.query_state, torch.as_tensor(pos3, device=cuda),
+            torch.as_tensor(quats, device=cuda), n_poses, fp, group, conservative,
+            identity and not conservative, block)
+    before = poly_kernel.check_polygonal_paths_grouped.launches
+    if case == "global_slots":
+        inputs = poly_kernel.kernel_inputs(*args, smem_limit=0)
+        assert inputs.plan.smem_bytes == 0 and inputs.slots is not None
+        got = poly_kernel.launch(inputs, return_segments=True)
+    else:
+        got = poly_kernel.check_polygonal_paths_grouped(*args, return_segments=True)
+    torch.cuda.synchronize()
+    assert poly_kernel.check_polygonal_paths_grouped.launches == before + 1
+    assert (poly_kernel.launch_plan(1, len(fp), 1, conservative).smem_bytes == 0) == (
+        case == "many_vertices")
+    want = footprint.check_polygonal_paths_grouped(*args, return_segments=True)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    assert torch.equal(got[4], want[4])
+    weights = want[6]
+    assert bool(((got[5] - want[5]).abs() <= 1e-5 * want[5].abs() + 1e-7 * want[4]).all())
+    assert bool(((got[6] - weights).abs()
+                 <= 1e-5 * torch.maximum(weights.abs(), weights[:, :1].abs())).all())
+    n_t = torch.as_tensor(n_poses, device=cuda)
+    valid = torch.arange(1, pos3.shape[1], device=cuda)[None, :] < n_t[:, None]
+    w_seg = torch.where(valid, weights[:, 1:], 0.0)
+    single = n_t == 1
+    abs_sum = torch.where(single, weights[:, 0].abs(), w_seg.abs().sum(1))
+    cond = abs_sum / torch.where(single, weights[:, 0].abs(), w_seg.sum(1).abs()).clamp_min(1e-12)
+    assert bool(((got[1] - want[1]).abs() <= 2e-5 * cond).all())
+    assert bool(((got[2] - want[2]).abs() <= 1e-5 * abs_sum + 1e-6).all())
 
 
 @pytest.mark.parametrize("orientation", ["random_yaw", "identity"])

@@ -21,6 +21,7 @@ from traversability_estimation_tpu.utils.config import EstimatorConfig as JaxCon
 from traversability_estimation_tpu.utils.config import FootprintConfig as JaxFootprint
 from traversability_estimation_tpu_torch import TraversabilityEstimator
 from traversability_estimation_tpu_torch.ops import footprint as tfp
+from traversability_estimation_tpu_torch.ops import poly_kernel
 from traversability_estimation_tpu_torch.utils.convert import config_from_fields
 
 RES = 0.03
@@ -346,7 +347,7 @@ def test_bucketed_paths_match_jax_and_the_single_window(engines, conservative):
     for n_buckets in (2, 3):
         plan = tfp.plan_window_buckets(RECT, pos3, quats, RES, n_buckets)
         assert len(set(plan[1])) > 1  # the buckets' windows differ
-        got = tfp.check_polygonal_paths_bucketed(
+        got = poly_kernel.check_polygonal_paths_bucketed(
             test.query_state, pos3, quats, n_poses, RECT, plan, conservative)
         np.testing.assert_array_equal(got[0].numpy(), ref[0].numpy())
         np.testing.assert_allclose(got[1].numpy(), ref[1].numpy(), rtol=0, atol=1e-6)
@@ -357,7 +358,7 @@ def test_bucketed_paths_match_jax_and_the_single_window(engines, conservative):
     out_j = jfp.check_polygonal_paths_bucketed(
         jest._query_state, jnp.asarray(pos3), jnp.asarray(quats), jnp.asarray(n_poses),
         jnp.asarray(RECT), plan, conservative)
-    _assert_paths_equal(tfp.check_polygonal_paths_bucketed(
+    _assert_paths_equal(poly_kernel.check_polygonal_paths_bucketed(
         test.query_state, pos3, quats, n_poses, RECT, plan, conservative), out_j)
 
 

@@ -20,16 +20,37 @@ from traversability_estimation_tpu_torch.utils import profiling
 COST_S = 1e-3  # the fake loop's cost per iteration
 
 
-def _fake_loop(k):
-    def run(_):
-        time.sleep(k * COST_S)
-    return run
+class _FakeClock:
+    """The host timer ``profiling`` reads, advanced only by the fake loop:
+    a loop of k iterations takes exactly k * COST_S, whatever the host's
+    load (a sleep's jitter under parallel test workers exceeds the bars)."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        return self.now
+
+
+@pytest.fixture
+def clock(monkeypatch):
+    fake = _FakeClock()
+    monkeypatch.setattr(profiling, "time", fake)
+    return fake
+
+
+def _fake_loop(clock):
+    def make(k):
+        def run(_):
+            clock.now += k * COST_S
+        return run
+    return make
 
 
 @pytest.mark.parametrize("max_escalations, gap", [(3, 64), (1, 4), (0, 1)])
-def test_adaptive_slope_escalates_and_divides_by_the_measured_gap(max_escalations, gap):
+def test_adaptive_slope_escalates_and_divides_by_the_measured_gap(clock, max_escalations, gap):
     logs = []
-    s = profiling.adaptive_slope_stats(_fake_loop, torch.zeros(1), 1, 2, min_diff_s=20e-3,
+    s = profiling.adaptive_slope_stats(_fake_loop(clock), torch.zeros(1), 1, 2, min_diff_s=20e-3,
                                        reps=3, max_escalations=max_escalations, log=logs.append)
     # K quadruples from (1, 2) while the difference (K2 - K1) * 1 ms is under
     # 20 ms: (4, 8), (16, 32), (64, 128); each escalation logs once
@@ -44,8 +65,8 @@ def test_adaptive_slope_escalates_and_divides_by_the_measured_gap(max_escalation
         assert s["median_s"] == pytest.approx(COST_S, rel=0.25)
 
 
-def test_adaptive_slope_is_the_stats_slope():
-    got = profiling.adaptive_slope(_fake_loop, torch.zeros(1), 8, 16, min_diff_s=1e-3)
+def test_adaptive_slope_is_the_stats_slope(clock):
+    got = profiling.adaptive_slope(_fake_loop(clock), torch.zeros(1), 8, 16, min_diff_s=1e-3)
     assert got == pytest.approx(COST_S, rel=0.25)
 
 

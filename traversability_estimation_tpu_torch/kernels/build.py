@@ -33,6 +33,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = {
     "fused_update": "fused_update.cu",
     "circle_field": "circle_field.cu",
+    "poly_paths": "poly_paths.cu",
     # the roofline's peak-rate probes (utils/roofline.py), not a port kernel
     "peaks": "peaks.cu",
 }

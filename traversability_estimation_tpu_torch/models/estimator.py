@@ -6,8 +6,8 @@ A plain class holding tensors on one device. ``update`` runs the fused map
 update (kernel 1 on CUDA); circular path queries read the dense circle
 field of the current map epoch (kernel 2 on CUDA), cached per (radius,
 offset) until the map changes; polygonal path batches are dispatched from
-host-visible batch statistics to the grouped (one window per path) or the
-per-segment evaluator.
+host-visible batch statistics to the grouped (one window per path; kernel
+3 on CUDA) or the per-segment evaluator.
 
 The online path keeps a persistent map and refreshes it from robot-centric
 submaps: ``merge_submap`` / ``recenter`` / ``update_with_submap`` one step
@@ -48,6 +48,7 @@ from traversability_estimation_tpu_torch.grid.gridmap import GridMap
 from traversability_estimation_tpu_torch.models import untraversable
 from traversability_estimation_tpu_torch.ops import chain as spec_chain
 from traversability_estimation_tpu_torch.ops import footprint as fp_ops
+from traversability_estimation_tpu_torch.ops import poly_kernel
 from traversability_estimation_tpu_torch.ops import veto as veto_ops
 from traversability_estimation_tpu_torch.ops.field_kernel import dense_circle_field
 from traversability_estimation_tpu_torch.ops.update_kernel import fused_update
@@ -243,10 +244,10 @@ def _online_tick(
     )
     field = None
     if footprint is not None:
-        # polygonal tick: the grouped evaluator on the query crop (window and
-        # translate_only were resolved on the host)
+        # polygonal tick: the grouped evaluator (kernel 3 on CUDA) on the
+        # query crop (window and translate_only were resolved on the host)
         pos3 = np.concatenate([poses, np.zeros(poses.shape[:2] + (1,), np.float32)], -1)
-        safe, trav, _area = fp_ops.check_polygonal_paths_grouped(
+        safe, trav, _area = poly_kernel.check_polygonal_paths_grouped(
             state, pos3, quats, n_poses, np.asarray(footprint, np.float32), pwindow,
             conservative, translate_only,
         )
@@ -262,9 +263,9 @@ def _dispatch_polygonal(
     query_state, pos3, quats, n_poses, fp, resolution, conservative,
     stats_out: Optional[dict] = None,
 ):
-    """Pick the grouped (per-path window) or the per-segment polygonal
-    evaluator; returns (safe, trav, area) tensors on the query state's
-    device.
+    """Pick the grouped (per-path window; kernel 3 on CUDA) or the
+    per-segment polygonal evaluator; returns (safe, trav, area) tensors on
+    the query state's device.
 
     pos3 (float32), quats and fp (float32) are host arrays, uploaded here
     once: ``fp_ops.path_window_plan`` reduces the window planners' inputs on
@@ -308,7 +309,7 @@ def _dispatch_polygonal(
             group_window_elems=int(eff_w[0] * eff_w[1] * B),
         )
     if grouped:
-        return fp_ops.check_polygonal_paths_grouped(
+        return poly_kernel.check_polygonal_paths_grouped(
             query_state, pos3_t, quats_t, n_poses, fp_t, gw, bool(conservative), translate_only,
             bw if use_blocks else None,
         )

@@ -9,7 +9,9 @@ grid_map's PolygonIterator and aggregate the path by area; the veto cascade
 is read from the dense ``traversable_mask`` plane.
 
 The dense circle field's plain version lives here; its CUDA kernel is in
-``ops/field_kernel.py`` (``csrc/circle_field.cu``).
+``ops/field_kernel.py`` (``csrc/circle_field.cu``). So does the grouped
+polygonal evaluator's; its kernel is in ``ops/poly_kernel.py``
+(``csrc/poly_paths.cu``).
 """
 
 from __future__ import annotations
@@ -954,7 +956,8 @@ def plan_window_buckets(
 
     Returns (idx_groups, windows, inverse): the groups' path indices, each
     group's (wi, wj), and the permutation that restores the batch order of
-    the concatenated group results. For ``check_polygonal_paths_bucketed``.
+    the concatenated group results. For
+    ``poly_kernel.check_polygonal_paths_bucketed``.
     """
     pos_np = np.asarray(positions, np.float32)
     quat_np = np.asarray(quaternions, np.float32)
@@ -978,38 +981,6 @@ def plan_window_buckets(
         tuple(windows),
         tuple(inverse.tolist()),
     )
-
-
-def check_polygonal_paths_bucketed(
-    state: QueryState,
-    positions,
-    quaternions,
-    n_poses,
-    footprint,
-    plan,
-    conservative: bool = False,
-    translate_only: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The grouped evaluator under a ``plan_window_buckets`` plan: one
-    grouped evaluation per bucket, with that bucket's window. Per-path
-    results are independent of the batch, so verdicts and areas equal the
-    single-window call's; traversability sums run over another window shape
-    (within the last ulps). Same requirements as
-    ``check_polygonal_paths_grouped``.
-    """
-    positions, quaternions, n_poses, footprint = _path_inputs(
-        state, positions, quaternions, n_poses, footprint
-    )
-    idx_groups, windows, inverse = plan
-    outs = []
-    for idx, window in zip(idx_groups, windows):
-        ii = torch.as_tensor(idx, dtype=torch.int64, device=state.device)
-        outs.append(check_polygonal_paths_grouped(
-            state, positions[ii], quaternions[ii], n_poses[ii], footprint, window,
-            conservative, translate_only,
-        ))
-    inv = torch.as_tensor(inverse, dtype=torch.int64, device=state.device)
-    return tuple(torch.cat([o[k] for o in outs])[inv] for k in range(3))
 
 
 def path_block_window(
@@ -1167,9 +1138,11 @@ def check_polygonal_paths_grouped(
     conservative: bool = False,
     translate_only: bool = False,
     block_window: Optional[Tuple[int, int]] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return_segments: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """checkPolygonalFootprintPath grouped per PATH: the formulation for
-    planner batches with short segments.
+    planner batches with short segments. The plain version of kernel 3
+    (``ops/poly_kernel.py``), which callers on the card go through.
 
     A path's consecutive hulls overlap almost entirely, so this evaluator
     fetches ONE window per path (pose bbox + footprint reach) where the
@@ -1194,7 +1167,11 @@ def check_polygonal_paths_grouped(
     - `window` from ``path_group_window`` (covers every path's pose bbox);
     - padded poses beyond n_poses[p] repeat the last valid pose.
 
-    Returns (is_safe (P,), traversability (P,), area (P,)).
+    Returns (is_safe (P,), traversability (P,), area (P,)); with
+    `return_segments` also each ring's (fail (P, N) bool, cells (P, N)
+    int64, sum (P, N) f32, area weight (P, N) f32): ring 0 the pose-0
+    footprint (weight: its area), ring u > 0 segment u - 1 (weight: its
+    hull's area, less polygon1's after the first segment).
     """
     positions, quaternions, n_poses, footprint = _path_inputs(
         state, positions, quaternions, n_poses, footprint
@@ -1280,7 +1257,8 @@ def check_polygonal_paths_grouped(
     area1 = polygon_area(polys[:, 0], V)
     if N == 1:
         safe = ok1 & (n_poses >= 1)
-        return safe, torch.where(ok1, trav1, 0.0), torch.where(ok1, area1, 0.0)
+        out = (safe, torch.where(ok1, trav1, 0.0), torch.where(ok1, area1, 0.0))
+        return out + (f0, n0, s0, area1[:, None]) if return_segments else out
 
     # padding of a hull repeats its first vertex: the wrap at Mh then closes
     # the ring with one real edge and zero-length no-ops, so the real vertex
@@ -1300,12 +1278,17 @@ def check_polygonal_paths_grouped(
         parts.append(seg_block(h_blk, context))
     fail, n, sm = (torch.cat([p[k] for p in parts], dim=1) for k in range(3))
     seg_ok, seg_trav = _window_verdict(state, fail, n, sm)
-    return _aggregate_polygonal_path(
-        seg_ok, seg_trav,
-        polygon_area(rings, rings.shape[2]),
-        polygon_area(poly1, poly1.shape[2]),
-        n_poses, ok1, trav1, area1,
+    hull_area = polygon_area(rings, rings.shape[2])
+    poly1_area = polygon_area(poly1, poly1.shape[2])  # grid_map getArea, stored vertex order
+    out = _aggregate_polygonal_path(
+        seg_ok, seg_trav, hull_area, poly1_area, n_poses, ok1, trav1, area1
     )
+    if not return_segments:
+        return out
+    weights = torch.cat([area1[:, None], hull_area[:, :1], hull_area[:, 1:] - poly1_area[:, 1:]], 1)
+    return out + tuple(
+        torch.cat([a, b], dim=1) for a, b in ((f0, fail), (n0, n), (s0, sm))
+    ) + (weights,)
 
 
 def _point_in_polygon(verts: np.ndarray, p: np.ndarray) -> bool:
