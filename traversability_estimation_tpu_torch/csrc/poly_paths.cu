@@ -69,6 +69,7 @@ struct PolyParams {
   int conservative, translate_only, use_blocks;
   float* slots;  // (P, POLY_WARPS, POLY_SLOT_WORDS, cap) global slots, or null: shared memory
   unsigned long long* work;  // null, or [hull point tests, searches] added up
+  unsigned long long* stage;  // null, or kStages per-stage warp cycles added up
   uint8_t* safe;
   float* trav;
   float* area;
@@ -99,6 +100,38 @@ __device__ __forceinline__ float warp_min(float v) {
   for (int o = 16; o; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
+
+// Per-stage clocks of one warp (kStage, off in use): lap(k) adds the cycles
+// since the previous lap to stage k; lane 0's counters are kept, and a lap
+// after a divergent branch falls after the warp reconverges, so it counts
+// the branch's whole time.
+enum Stage {
+  kTransform, kHullTests, kHullWalk, kRingArea, kStraddle, kSearch, kSweep, kAggregate,
+  kBarrier, kOther, kStages
+};
+
+template <bool kOn>
+struct Stages {
+  unsigned long long c[kStages];
+  long long t;
+  __device__ __forceinline__ void start() {
+    if (kOn) {
+      for (int k = 0; k < kStages; ++k) c[k] = 0;
+      t = clock64();
+    }
+  }
+  __device__ __forceinline__ void lap(int k) {
+    if (kOn) {
+      const long long n = clock64();
+      c[k] += (unsigned long long)(n - t);
+      t = n;
+    }
+  }
+  __device__ __forceinline__ void flush(unsigned long long* out, int lane) {
+    if (kOn && lane == 0)
+      for (int k = 0; k < kStages; ++k) atomicAdd(&out[k], c[k]);
+  }
+};
 
 // footprint vertex v at pose t of `path` (transform_footprint)
 __device__ __forceinline__ void transform(const PolyParams& p, int path, int t, int v,
@@ -146,9 +179,9 @@ __device__ float ring_area(const float* X, const float* Y, int m, int lane) {
 // Edge-matrix convex hull (ops/hull.py) of the m points (X, Y), every one
 // valid, into the ring (RX, RY) of m entries, by one warp; kCount: its point
 // tests are added to work[0].
-template <bool kCount>
+template <bool kCount, bool kStage>
 __device__ void hull_ring(const float* X, const float* Y, int m, int* succ, int* dup, float* RX,
-                          float* RY, int lane, unsigned long long* work) {
+                          float* RY, int lane, unsigned long long* work, Stages<kStage>& st) {
   for (int a = lane; a < m; a += 32) {
     int d = 0;
     for (int b = 0; b < a; ++b) d |= (X[a] == X[b]) & (Y[a] == Y[b]);
@@ -182,6 +215,7 @@ __device__ void hull_ring(const float* X, const float* Y, int m, int* succ, int*
     if (lane == 0) atomicAdd(&work[0], tests);
   }
   __syncwarp();
+  st.lap(kHullTests);
   if (lane == 0) {
     int start = 0;
     for (int i = 0; i < m; ++i)
@@ -203,15 +237,16 @@ __device__ void hull_ring(const float* X, const float* Y, int m, int* succ, int*
     }
   }
   __syncwarp();
+  st.lap(kHullWalk);
 }
 
 // The ring of segment s of `path` into the warp's slot (RX, RY: `mh`
 // entries); returns its area weight (hull area, less polygon1's after the
 // first segment).
-template <bool kCount>
+template <bool kCount, bool kStage>
 __device__ float segment_ring(const PolyParams& p, int path, int s, float orient, float* X,
                               float* Y, float* RX, float* RY, int* succ, int* dup, int lane,
-                              int& mh) {
+                              int& mh, Stages<kStage>& st) {
   const int V = p.V;
   const float* ps0 = p.pos + ((size_t)path * p.N + s) * p.pos_d;
   const float* ps1 = ps0 + p.pos_d;
@@ -234,6 +269,7 @@ __device__ float segment_ring(const PolyParams& p, int path, int s, float orient
     }
   }
   __syncwarp();
+  st.lap(kTransform);
   mh = 2 * mv;
   if (p.translate_only && !p.conservative) {
     // swept_hull_translates: vertex k's poly1 copy where the outward normal
@@ -251,20 +287,22 @@ __device__ float segment_ring(const PolyParams& p, int path, int s, float orient
       RY[2 * k + 1] = g ? Y[V + k] : Y[k];
     }
     __syncwarp();
+    st.lap(kHullTests);
   } else {
-    hull_ring<kCount>(X, Y, mh, succ, dup, RX, RY, lane, p.work);
+    hull_ring<kCount>(X, Y, mh, succ, dup, RX, RY, lane, p.work, st);
   }
-  const float hull_area = ring_area(RX, RY, mh, lane);
-  if (s == 0) return hull_area;
-  return hull_area - ring_area(X, Y, mv, lane);
+  float w = ring_area(RX, RY, mh, lane);
+  if (s > 0) w -= ring_area(X, Y, mv, lane);
+  st.lap(kRingArea);
+  return w;
 }
 
 // fail / count / sum of the cells inside the convex ring (RX, RY: m
 // entries, closed by wrap) in the window at (si, sj), by one warp (the
 // span rule of seg_block); kCount: its binary searches are added to work[1]
-template <bool kCount>
+template <bool kCount, bool kStage>
 __device__ void rasterise(const PolyParams& p, const float* RX, const float* RY, int m, int si,
-                          int sj, int lane, bool& fail, int& n, float& sum) {
+                          int sj, int lane, bool& fail, int& n, float& sum, Stages<kStage>& st) {
   const float p0x = p.p0[0], p0y = p.p0[1];
   const int gi0 = si - p.gpad, gj0 = sj - p.gpad;
   bool f = false;
@@ -276,7 +314,9 @@ __device__ void rasterise(const PolyParams& p, const float* RX, const float* RY,
     float xj = RX[m - 1], yj = RY[m - 1];  // the previous vertex of vertex 0
     for (int e = 0; e < m; ++e) {
       const float xi = RX[e], yi = RY[e];
-      if ((yi > py) != (yj > py)) {
+      const bool straddles = (yi > py) != (yj > py);
+      st.lap(kStraddle);
+      if (straddles) {
         const float denom = yj - yi;
         const float sg = denom > 0.0f ? 1.0f : -1.0f;
         const float d_abs = denom * sg;
@@ -292,6 +332,7 @@ __device__ void rasterise(const PolyParams& p, const float* RX, const float* RY,
         lo = min(lo, l);
         hi = max(hi, l);
       }
+      st.lap(kSearch);
       xj = xi;
       yj = yi;
     }
@@ -305,6 +346,7 @@ __device__ void rasterise(const PolyParams& p, const float* RX, const float* RY,
         acc += v;
       }
     }
+    st.lap(kSweep);
   }
   fail = __any_sync(kFull, f);
   n = warp_sum_i(cnt);
@@ -313,6 +355,7 @@ __device__ void rasterise(const PolyParams& p, const float* RX, const float* RY,
     searches = warp_sum_i(searches);
     if (lane == 0) atomicAdd(&p.work[1], (unsigned long long)searches);
   }
+  st.lap(kSweep);
 }
 
 __device__ __forceinline__ void store_ring(const PolyParams& p, int path, int u, bool fail, int n,
@@ -335,9 +378,11 @@ __device__ __forceinline__ void verdict(const PolyParams& p, bool fail, int n, f
   trav = fail ? 0.0f : (empty ? p.default_tv : mean);
 }
 
-template <bool kGlobal, bool kCount>
+template <bool kGlobal, bool kCount, bool kStage>
 __global__ void __launch_bounds__(kThreads) poly_paths_kernel(const PolyParams p) {
   extern __shared__ float smem[];
+  Stages<kStage> st;
+  st.start();
   const int path = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // this block's slots: shared memory, or its slice of the global scratch
@@ -376,8 +421,10 @@ __global__ void __launch_bounds__(kThreads) poly_paths_kernel(const PolyParams p
                  psi, psj);
   }
   auto pose0 = [&]() {
+    st.lap(kOther);
     for (int v = lane; v < p.V; v += 32) transform(p, path, 0, v, RX[v], RY[v]);
     __syncwarp();
+    st.lap(kTransform);
     int si = psi, sj = psj;
     if (p.use_blocks) {
       float mx = -INFINITY, my = -INFINITY, nx = INFINITY, ny = INFINITY;
@@ -391,9 +438,13 @@ __global__ void __launch_bounds__(kThreads) poly_paths_kernel(const PolyParams p
     bool fail;
     int n;
     float sum;
-    rasterise<kCount>(p, RX, RY, p.V, si, sj, lane, fail, n, sum);
-    store_ring(p, path, 0, fail, n, sum, ring_area(RX, RY, p.V, lane), lane);
+    st.lap(kOther);
+    rasterise<kCount>(p, RX, RY, p.V, si, sj, lane, fail, n, sum, st);
+    const float a = ring_area(RX, RY, p.V, lane);
+    st.lap(kRingArea);
+    store_ring(p, path, 0, fail, n, sum, a, lane);
     __syncwarp();
+    st.lap(kOther);
   };
 
   if (!p.use_blocks) {
@@ -403,13 +454,16 @@ __global__ void __launch_bounds__(kThreads) poly_paths_kernel(const PolyParams p
         continue;
       }
       int mh;
-      const float w = segment_ring<kCount>(p, path, u - 1, orient, X, Y, RX, RY, succ, dup, lane, mh);
+      st.lap(kOther);
+      const float w =
+          segment_ring<kCount>(p, path, u - 1, orient, X, Y, RX, RY, succ, dup, lane, mh, st);
       bool fail;
       int n;
       float sum;
-      rasterise<kCount>(p, RX, RY, mh, psi, psj, lane, fail, n, sum);
+      rasterise<kCount>(p, RX, RY, mh, psi, psj, lane, fail, n, sum, st);
       store_ring(p, path, u, fail, n, sum, w, lane);
       __syncwarp();
+      st.lap(kOther);
     }
   } else {
     if (warp == 0) pose0();
@@ -417,9 +471,13 @@ __global__ void __launch_bounds__(kThreads) poly_paths_kernel(const PolyParams p
       const int s = b0 + warp, nb = min(POLY_WARPS, S - b0);
       int mh = 0;
       float w = 0.0f;
+      st.lap(kOther);
       __syncthreads();  // the previous block's rings are read by every warp
-      if (s < S) w = segment_ring<kCount>(p, path, s, orient, X, Y, RX, RY, succ, dup, lane, mh);
+      st.lap(kBarrier);
+      if (s < S)
+        w = segment_ring<kCount>(p, path, s, orient, X, Y, RX, RY, succ, dup, lane, mh, st);
       __syncthreads();
+      st.lap(kBarrier);
       // the block's anchor: the bbox centre of its rings (a ring fills its
       // slot: cap == mh)
       float mx = -INFINITY, my = -INFINITY, nx = INFINITY, ny = INFINITY;
@@ -436,12 +494,15 @@ __global__ void __launch_bounds__(kThreads) poly_paths_kernel(const PolyParams p
         bool fail;
         int n;
         float sum;
-        rasterise<kCount>(p, RX, RY, mh, si, sj, lane, fail, n, sum);
+        st.lap(kOther);
+        rasterise<kCount>(p, RX, RY, mh, si, sj, lane, fail, n, sum, st);
         store_ring(p, path, s + 1, fail, n, sum, w, lane);
       }
     }
   }
+  st.lap(kOther);
   __syncthreads();
+  st.lap(kBarrier);
 
   // the path's verdict (_aggregate_polygonal_path), in segment order
   if (threadIdx.x == 0) {
@@ -484,6 +545,8 @@ __global__ void __launch_bounds__(kThreads) poly_paths_kernel(const PolyParams p
     p.trav[path] = trav;
     p.area[path] = area;
   }
+  st.lap(kAggregate);
+  st.flush(p.stage, lane);
 }
 
 static size_t smem_bytes(int cap) { return (size_t)POLY_WARPS * POLY_SLOT_WORDS * 4 * cap; }
@@ -507,7 +570,8 @@ const char* te_poly_paths_error_string(int err) { return cudaGetErrorString((cud
 // Resident blocks per SM for a launch with this shared memory, or -1.
 int te_poly_paths_occupancy(int smem) {
   int blocks = -1;
-  const auto kernel = smem ? poly_paths_kernel<false, false> : poly_paths_kernel<true, false>;
+  const auto kernel =
+      smem ? poly_paths_kernel<false, false, false> : poly_paths_kernel<true, false, false>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
@@ -524,7 +588,9 @@ int te_poly_paths_occupancy(int smem) {
 // checked against this file's block and slot layout (cudaErrorInvalidValue
 // where they differ): smem holds the slots, or is 0 and `slots` (P x
 // POLY_WARPS x POLY_SLOT_WORDS x cap f32) does. `work`: null, or two u64
-// counters the launch adds its hull point tests and binary searches to.
+// counters the launch adds its hull point tests and binary searches to;
+// `stage`: null, or kStages u64 counters it adds each stage's warp cycles to
+// (not both).
 // Returns cudaGetLastError() after the launch.
 int te_poly_paths(const float* pos, const float* quat, const int* n_poses, const float* fp,
                   const float* plane, const float* p0, int P, int N, int pos_d, int V, int H,
@@ -532,10 +598,10 @@ int te_poly_paths(const float* pos, const float* quat, const int* n_poses, const
                   float default_tv, int conservative, int translate_only, int use_blocks,
                   int grid_x, int block_x, int smem, float* slots, uint8_t* safe, float* trav,
                   float* area, uint8_t* u_fail, int* u_n, float* u_sum, float* u_area,
-                  unsigned long long* work, void* stream) {
+                  unsigned long long* work, unsigned long long* stage, void* stream) {
   const int m = (conservative ? 4 : 2) * V;
   if (P < 1 || N < 1 || pos_d < 2 || V < 1 || wi < 1 || wj < 1 || gpad < wi || gpad < wj ||
-      H < 0 || W < 0 || n_bits != (wi > 1 ? bit_length(wi) : 1) || cap != m || grid_x != P ||
+      H < 0 || W < 0 || (work && stage) || n_bits != (wi > 1 ? bit_length(wi) : 1) || cap != m || grid_x != P ||
       block_x != kThreads || (size_t)smem != (slots ? 0 : smem_bytes(cap)))
     return (int)cudaErrorInvalidValue;
   PolyParams prm;
@@ -547,11 +613,16 @@ int te_poly_paths(const float* pos, const float* quat, const int* n_poses, const
   prm.res = res, prm.res_rcp = res_rcp, prm.default_tv = default_tv;
   prm.conservative = conservative, prm.translate_only = translate_only;
   prm.use_blocks = use_blocks;
-  prm.slots = slots, prm.work = work;
+  prm.slots = slots, prm.work = work, prm.stage = stage;
   prm.safe = safe, prm.trav = trav, prm.area = area;
   prm.u_fail = u_fail, prm.u_n = u_n, prm.u_sum = u_sum, prm.u_area = u_area;
-  const auto kernel = slots ? (work ? poly_paths_kernel<true, true> : poly_paths_kernel<true, false>)
-                            : (work ? poly_paths_kernel<false, true> : poly_paths_kernel<false, false>);
+  const auto kernel =
+      slots ? (work    ? poly_paths_kernel<true, true, false>
+               : stage ? poly_paths_kernel<true, false, true>
+                       : poly_paths_kernel<true, false, false>)
+            : (work    ? poly_paths_kernel<false, true, false>
+               : stage ? poly_paths_kernel<false, false, true>
+                       : poly_paths_kernel<false, false, false>);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&prm};

@@ -36,6 +36,10 @@ WARPS = footprint.SEG_BLOCK
 THREADS = 32 * WARPS
 SLOT_WORDS = 6  # 32-bit words a warp's slot keeps per ring point
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use on the H100
+# the stages whose warp cycles the stage-timing instantiation adds up
+# (``stage_cycles``), in the order of ``Stage`` in csrc/poly_paths.cu
+STAGES = ("transform", "hull tests", "hull walk", "ring area", "straddle tests", "searches",
+          "cell sweep", "aggregation", "barrier waits", "other")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +99,7 @@ def library() -> ctypes.CDLL:
         lib.te_poly_paths.argtypes = [
             *([ctypes.c_void_p] * 6), *([ctypes.c_int] * 11),
             ctypes.c_float, ctypes.c_float, ctypes.c_float, *([ctypes.c_int] * 6),
-            *([ctypes.c_void_p] * 10),
+            *([ctypes.c_void_p] * 11),
         ]
         lib.te_poly_paths.restype = ctypes.c_int
         lib.te_poly_paths_occupancy.argtypes = [ctypes.c_int]
@@ -168,11 +172,13 @@ def kernel_inputs(
 
 
 def launch(k: KernelInputs, return_segments: bool = False,
-           work: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+           work: Optional[torch.Tensor] = None,
+           stage: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """One launch of kernel 3 on prepared inputs, on the current stream;
     returns what ``check_polygonal_paths_grouped`` returns. `work`, an int64
     (2,) tensor on the card, gets the launch's hull point tests and binary
-    searches added to it."""
+    searches added to it; `stage`, an int64 (len(STAGES),) tensor, each
+    stage's warp cycles (the stage-timing instantiation; not with `work`)."""
     dev = k.positions.device
     P, N, pos_d = k.positions.shape
     outs = (
@@ -201,6 +207,7 @@ def launch(k: KernelInputs, return_segments: bool = False,
             k.slots.data_ptr() if k.slots is not None else None,
             *(t.data_ptr() for t in outs), *(t.data_ptr() for t in rings),
             work.data_ptr() if work is not None else None,
+            stage.data_ptr() if stage is not None else None,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -298,6 +305,15 @@ def work_counts(k: KernelInputs) -> Tuple[int, int]:
     launch(k, work=work)
     tests, searches = work.tolist()
     return tests, searches
+
+
+def stage_cycles(k: KernelInputs) -> Tuple[int, ...]:
+    """Warp cycles of each of ``STAGES`` in one launch of the stage-timing
+    instantiation on these inputs (``clock64`` laps of each warp's lane 0,
+    summed over warps): where the kernel's time goes, as shares."""
+    stage = torch.zeros(len(STAGES), dtype=torch.int64, device=k.positions.device)
+    launch(k, stage=stage)
+    return tuple(stage.tolist())
 
 
 def kernel_operations(P: int, N: int, V: int, wi: int, wj: int, conservative: bool,
