@@ -48,9 +48,13 @@ Phases (any failure exits non-zero):
    partly off the map; a map of only unknown cells; a convex octagon,
    conservative (32 hull points), with its slots in shared memory and,
    forced, in the global scratch (so too the block tier); a convex 700-gon
-   (1,400 ring points, past the shared memory: global slots by itself).
-   Bars: one launch per batch; is_safe, each ring's fail and cell count
-   equal; each ring's cell sum within rtol 1e-5 (plus 1e-7 a cell) and its
+   (1,400 ring points, past the shared memory: global slots by itself); the
+   span-boundary batch (a rectangle's vertices exactly on cell centres and
+   borders of a 1/32 m map: ties decide each ring's first and last
+   columns); 8 of the random-yaw paths (too few to fill the card: each path
+   a cluster of blocks). Bars: one launch per batch; a second launch gives
+   the same bits; is_safe, each ring's fail and cell count equal; each
+   ring's cell sum within rtol 1e-5 (plus 1e-7 a cell) and its
    area weight within 1e-5 of the larger of the weight and the footprint's
    area; traversability within 2e-5 and area within rtol 1e-5, each scaled
    by the path's sum|w| / |sum w| over its segments' area weights w (1
@@ -58,12 +62,16 @@ Phases (any failure exits non-zero):
    and so is the weight of a hull that the collinearity band collapses, as
    on a path heading along a footprint edge). CUDA-event times of kernel 3,
    of its wrapper call and of the plain version at 1024 x 50, with the
-   bound from the work the kernel counts (hull point tests, searches);
+   bound from the work the kernel counts (hull point tests, searches,
+   straddle tests over each ring's own columns); the share of each stage
+   (the stage-timing instantiation), registers and resident blocks beside
+   the first design's, recorded in PERF.md;
 6. a 2048^2 map (> 4M cells: the query-crop path) with one path batch;
    both kernels bit-identical to their plain versions there, and timed; a
    served-size polygonal batch there (8 paths x 10 poses across the map, a
    window of millions of cells): kernel 3 against its plain version, and
-   the times of the kernel, the batch and the plain version;
+   the times of the kernel, the batch and the plain version, the stage
+   shares beside the first design's;
 7. the online loop (config 4): a 50 m x 50 m map at 0.03 m (1667 x 1667
    cells, all unknown at first), the robot on a circle of radius 12.5 m, a
    4 m x 4 m submap (133 x 133 cells) and 256 paths x 10 poses per tick
@@ -106,7 +114,9 @@ Phases (any failure exits non-zero):
    step layers and masks exact, float layers within 1e-6; the saved bag
    loads back bit-identical in every float layer. Then node A's timer runs
    at 50 Hz for 2 s while four client threads query it: every response ok,
-   no failed tick. Wall times per request kind from the client's side;
+   no failed tick. Wall times per request kind from the client's side (the
+   first polygonal request's among them: the node builds kernel 3 when it
+   starts, with kernels 1 and 2);
 9. the tiled multi-process path (``parallel/``), on the one card:
    (a) the tile bodies on 2 x 2 and 2 x 4 grids of the 336^2 map and of a
    337 x 335 map with 4% NaN holes, each tile's halo cut from the NaN-padded
@@ -533,7 +543,7 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
         f"{map_err:g}; the saved bag loads back bit-identical")
     for kind, ms in walls.items():
         log(f"serving request ({card_line}): {kind}: {len(ms)} x, wall median "
-            f"{np.median(ms):.3f} ms, max {np.max(ms):.3f} ms")
+            f"{np.median(ms):.3f} ms, max {np.max(ms):.3f} ms, first {ms[0]:.3f} ms")
     return {k: sum(st[k] for st in stages.values())
             for k in ("fused_update", "circle_field", "poly_paths")}
 
@@ -544,6 +554,62 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
 K3_BLOCK_PATHS, K3_BLOCK_POSES, K3_BLOCK_STEP = 1024, 128, 0.05
 K3_OCTAGON_PATHS = 256
 K3_MANY_VERTICES, K3_MANY_PATHS, K3_MANY_POSES = 700, 64, 20
+K3_FEW_PATHS = 8
+# the first design of kernel 3 (one block of 8 warps per path), measured on
+# this phase's batches and phase 6's by scripts/kernel3_profile.py on its
+# tree with the stage-timing instantiation (PERF.md, PR 11): device ms,
+# stage shares (of the summed warp cycles), registers and resident blocks
+K3_FIRST_DESIGN = {
+    "registers": 119, "blocks_per_sm": 2,
+    "identity 1024x50": (0.2134, {
+        "transform": 0.064, "hull tests": 0.035, "hull walk": 0.000, "ring area": 0.066,
+        "straddle tests": 0.090, "searches": 0.288, "cell sweep": 0.311, "aggregation": 0.095,
+        "barrier waits": 0.000, "other": 0.051}),
+    "random yaw 1024x50": (0.3595, {
+        "transform": 0.036, "hull tests": 0.223, "hull walk": 0.047, "ring area": 0.039,
+        "straddle tests": 0.074, "searches": 0.259, "cell sweep": 0.199, "aggregation": 0.097,
+        "barrier waits": 0.000, "other": 0.025}),
+    "conservative random yaw 1024x50": (0.7635, {
+        "transform": 0.017, "hull tests": 0.499, "hull walk": 0.039, "ring area": 0.017,
+        "straddle tests": 0.063, "searches": 0.155, "cell sweep": 0.093, "aggregation": 0.106,
+        "barrier waits": 0.000, "other": 0.011}),
+    "served 8x10": (0.1093, {
+        "transform": 0.011, "hull tests": 0.044, "hull walk": 0.010, "ring area": 0.017,
+        "straddle tests": 0.144, "searches": 0.158, "cell sweep": 0.210, "aggregation": 0.385,
+        "barrier waits": 0.000, "other": 0.021}),
+}
+
+
+def k3_registers() -> int:
+    """Registers of kernel 3's production instantiation (its ptxas report)."""
+    from traversability_estimation_tpu_torch.kernels import build
+
+    lines = build.build_log("poly_paths").splitlines()
+    entry = next(i for i, line in enumerate(lines)
+                 if "entry function" in line and "Lb0ELb0ELb0E" in line)
+    used = next(line for line in lines[entry:] if "Used" in line and "registers" in line)
+    return int(used.split("Used")[1].split("registers")[0])
+
+
+def k3_profile_line(name, card_line, ms, inputs, first_design):
+    """The first design's numbers beside this tree's for one batch: device
+    ms, registers, resident blocks and warps per SM, stage shares."""
+    from traversability_estimation_tpu_torch.ops import poly_kernel
+
+    cycles = poly_kernel.stage_cycles(inputs)
+    shares = {k: c / max(sum(cycles), 1) for k, c in zip(poly_kernel.STAGES, cycles)}
+    first_ms, first_shares = first_design
+    blocks = poly_kernel.occupancy(inputs.plan)
+
+    def fmt(sh):
+        return ", ".join(f"{k} {v:.3f}" for k, v in sh.items())
+
+    log(f"kernel 3 stage profile, {name} ({card_line}): first design (PERF.md) {first_ms:.4f} "
+        f"ms, {K3_FIRST_DESIGN['registers']} registers, {K3_FIRST_DESIGN['blocks_per_sm']} "
+        f"blocks/SM ({8 * K3_FIRST_DESIGN['blocks_per_sm']} warps), stages {fmt(first_shares)}; "
+        f"this kernel {ms:.4f} ms, {k3_registers()} registers, {blocks} blocks/SM "
+        f"({8 * blocks} warps), {inputs.plan.grid[0]} blocks ({inputs.plan.cluster} per path), "
+        f"stages {fmt(shares)}")
 
 
 def poly_kernel_phase(card_line, res, est, rect, pos3, quats_id, quats_rot, device_ms, cuda_ms):
@@ -555,6 +621,7 @@ def poly_kernel_phase(card_line, res, est, rect, pos3, quats_id, quats_rot, devi
     from traversability_estimation_tpu_torch import EstimatorConfig, TraversabilityEstimator
     from traversability_estimation_tpu_torch.models.estimator import _GROUPED_ELEMS_CAP
     from traversability_estimation_tpu_torch.ops import footprint, poly_kernel
+    from traversability_estimation_tpu_torch.scripts.kernel3_profile import span_boundary_batch
     from traversability_estimation_tpu_torch.utils import roofline
 
     dev = torch.device("cuda")
@@ -562,7 +629,7 @@ def poly_kernel_phase(card_line, res, est, rect, pos3, quats_id, quats_rot, devi
     P, N = pos3.shape[:2]
     full = np.full((P,), N, np.int32)
 
-    def windows(b_pos, b_quats, fp, identity):
+    def windows(b_pos, b_quats, fp, identity, res):
         ext = b_pos[..., :2].max(axis=1) - b_pos[..., :2].min(axis=1)
         group = footprint.path_group_window(fp, ext, res, True) if identity else \
             footprint.path_group_window_exact(fp, b_pos, b_quats, res)
@@ -598,6 +665,10 @@ def poly_kernel_phase(card_line, res, est, rect, pos3, quats_id, quats_rot, devi
     v_p, v_n = K3_MANY_PATHS, K3_MANY_POSES
     many = np.float32([[0.45 * np.cos(a), 0.3 * np.sin(a)]
                        for a in np.arange(K3_MANY_VERTICES) * -2 * np.pi / K3_MANY_VERTICES])
+    sb_res, sb_shape, sb_position, sb_pos3, sb_quats, sb_n, sb_fp = span_boundary_batch()
+    boundary = TraversabilityEstimator(EstimatorConfig(resolution=sb_res), device=dev)
+    boundary.update(synthetic_terrain(*sb_shape, sb_res, seed=2), position=sb_position)
+    f_p = K3_FEW_PATHS
     # name -> (query state, positions, quaternions, n_poses, footprint, conservative,
     # identity, block tier, shared memory the launch may use)
     smem = poly_kernel.SMEM_LIMIT
@@ -627,11 +698,17 @@ def poly_kernel_phase(card_line, res, est, rect, pos3, quats_id, quats_rot, devi
         f"{K3_MANY_VERTICES}-gon identity {v_p}x{v_n}": (
             qs, pos3[:v_p, :v_n], quats_id[:v_p, :v_n], np.full((v_p,), v_n, np.int32), many, False,
             True, False, smem),
+        # ties decide each ring's first and last columns (a 1/32 m map)
+        "span boundary": (boundary.query_state, sb_pos3, sb_quats, sb_n, sb_fp, False, True,
+                          False, smem),
+        # too few paths to fill the card: a cluster of blocks per path
+        f"{f_p} paths random yaw": (qs, pos3[:f_p], quats_rot[:f_p], full[:f_p], rect, False,
+                                    False, False, smem),
     }
     summary = {"max_abs_err": 0.0}
     for name, (state, b_pos, b_quats, n_poses, fp, conservative, identity, blocks, smem_limit) \
             in batches.items():
-        group, block = windows(b_pos, b_quats, fp, identity)
+        group, block = windows(b_pos, b_quats, fp, identity, state.resolution)
         n_paths = b_pos.shape[0]
         if blocks and not (group[0] * group[1] * n_paths > _GROUPED_ELEMS_CAP
                            >= block[0] * block[1] * n_paths):
@@ -640,18 +717,23 @@ def poly_kernel_phase(card_line, res, est, rect, pos3, quats_id, quats_rot, devi
                 n_poses, fp, group, conservative, identity and not conservative,
                 block if blocks else None)
         before = poly_kernel.check_polygonal_paths_grouped.launches
+        inputs = poly_kernel.kernel_inputs(*args, smem_limit=smem_limit)
         if smem_limit == poly_kernel.SMEM_LIMIT:
             got = poly_kernel.check_polygonal_paths_grouped(*args, return_segments=True)
         else:
-            got = poly_kernel.launch(poly_kernel.kernel_inputs(*args, smem_limit=smem_limit),
-                                     return_segments=True)
+            got = poly_kernel.launch(inputs, return_segments=True)
         torch.cuda.synchronize()
         launched = poly_kernel.check_polygonal_paths_grouped.launches - before
-        want = footprint.check_polygonal_paths_grouped(*args, return_segments=True)
         if launched != 1:
             fail(f"kernel 3 {name}: {launched} launches for one batch")
-        slots = "shared" if poly_kernel.launch_plan(
-            n_paths, len(fp), 1, conservative, smem_limit).smem_bytes else "global"
+        again = poly_kernel.launch(inputs, return_segments=True)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   if a.dtype == torch.float32 else torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"kernel 3 {name}: two launches on the same inputs differ")
+        want = footprint.check_polygonal_paths_grouped(*args, return_segments=True)
+        slots = "global" if inputs.plan.scratch_words else "shared"
+        if name.startswith(f"{f_p} paths") and not inputs.plan.grid[0] > n_paths:
+            fail(f"kernel 3 {name}: {inputs.plan.grid[0]} blocks for {n_paths} paths")
         (safe, trav, area, fail_r, cells, sums, w_got), (safe_w, trav_w, area_w, fail_w, cells_w,
                                                          sums_w, weights) = got, want
         if not (torch.equal(safe, safe_w) and torch.equal(fail_r, fail_w)
@@ -691,7 +773,8 @@ def poly_kernel_phase(card_line, res, est, rect, pos3, quats_id, quats_rot, devi
         summary["max_abs_err"] = max(summary["max_abs_err"], float(trav_err.max()))
         if not bool(torch.isfinite(trav).all() & torch.isfinite(area).all()):
             fail(f"kernel 3 {name}: non-finite values")
-        log(f"kernel 3 {name}: one launch, {slots} slots, window {block if blocks else group}; "
+        log(f"kernel 3 {name}: one launch of {inputs.plan.grid[0]} blocks, {slots} slots, window "
+            f"{block if blocks else group}; two launches bit-identical; "
             f"vs the plain version on the card: is_safe equal ({int(safe.sum())} of {n_paths} "
             f"safe), ring fail and cell counts exact ({int(cells.sum())} cells), ring sums max "
             f"diff {float(sum_err.max()):g}, ring weights {float(w_err.max()):g}, trav max diff "
@@ -700,7 +783,7 @@ def poly_kernel_phase(card_line, res, est, rect, pos3, quats_id, quats_rot, devi
 
     for name in ("identity 1024x50", "random yaw 1024x50", "conservative random yaw 1024x50"):
         state, b_pos, b_quats, n_poses, fp, conservative, identity, _, _ = batches[name]
-        group, _ = windows(b_pos, b_quats, fp, identity)
+        group, _ = windows(b_pos, b_quats, fp, identity, res)
         args = (state, torch.as_tensor(b_pos, device=dev), torch.as_tensor(b_quats, device=dev),
                 n_poses, fp, group, conservative, identity and not conservative)
         inputs = poly_kernel.kernel_inputs(*args)
@@ -708,28 +791,30 @@ def poly_kernel_phase(card_line, res, est, rect, pos3, quats_id, quats_rot, devi
         call_ms = cuda_ms(lambda: poly_kernel.check_polygonal_paths_grouped(*args), 20)
         plain_ms = cuda_ms(lambda: footprint.check_polygonal_paths_grouped(*args), 3, 1)
         cells = int(poly_kernel.launch(inputs, True)[4].sum())
-        hull_tests, searches = poly_kernel.work_counts(inputs)
+        hull_tests, searches, straddles = poly_kernel.work_counts(inputs)
         H, W = state.shape
         gpad = max(group)
         bound_ms, bound_by = roofline.bound(
             poly_kernel.kernel_bytes(P, N, len(fp), (H + 2 * gpad) * (W + 2 * gpad)),
-            poly_kernel.kernel_operations(P, N, len(fp), *group, conservative,
+            poly_kernel.kernel_operations(P, N, len(fp), group[0], conservative,
                                           identity and not conservative, cells, hull_tests,
-                                          searches))
+                                          searches, straddles))
         plan = inputs.plan
         log(f"kernel 3 {name} ({card_line}): {ms:.4f} ms device time, bound {bound_ms:.5f} ms "
-            f"({bound_by}; {hull_tests} hull point tests, {searches} searches, {cells} cells); "
-            f"wrapper call {call_ms:.4f} ms; plain version {plain_ms:.3f} ms; grid "
-            f"{plan.grid} x block {plan.block}, smem {plan.smem_bytes} B, "
-            f"{poly_kernel.occupancy(plan)} resident blocks/SM")
+            f"({bound_by}; {hull_tests} hull point tests, {searches} searches, {straddles} "
+            f"straddle tests, {cells} cells); wrapper call {call_ms:.4f} ms; plain version "
+            f"{plain_ms:.3f} ms; grid {plan.grid} x block {plan.block}, {plan.cluster} blocks "
+            f"per path, smem {plan.smem_bytes} B, {poly_kernel.occupancy(plan)} resident "
+            f"blocks/SM")
+        k3_profile_line(name, card_line, ms, inputs, K3_FIRST_DESIGN[name])
         if name == "random yaw 1024x50":
             summary.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     return summary
 
 
 # phase 6's served-size polygonal batch: paths x poses, from one corner of
-# the 2048^2 map to the other (a window of millions of cells, one block of
-# kernel 3 per path)
+# the 2048^2 map to the other (a window of millions of cells, a cluster of
+# kernel 3's blocks per path)
 SERVED_PATHS, SERVED_POSES = 8, 10
 
 
@@ -772,9 +857,11 @@ def served_polygonal_batch(card_line, res, est, rect, device_ms, cuda_ms):
     batch_ms = cuda_ms(lambda: est.check_polygonal_paths_batch(pos3, quats, n_poses, rect), 10)
     plain_ms = cuda_ms(lambda: footprint.check_polygonal_paths_grouped(*args), 3, 1)
     log(f"served-size polygonal batch ({card_line}): {P} paths x {N} poses, window {gw} "
-        f"({gw[0] * gw[1]} cells), {P} blocks; equal to the plain version in is_safe and every "
-        f"ring's fail and cell count ({int(got[4].sum())} cells); kernel 3 {ms:.4f} ms device "
-        f"time, the batch {batch_ms:.4f} ms, the plain version {plain_ms:.3f} ms")
+        f"({gw[0] * gw[1]} cells), {inputs.plan.grid[0]} blocks; equal to the plain version in "
+        f"is_safe and every ring's fail and cell count ({int(got[4].sum())} cells); kernel 3 "
+        f"{ms:.4f} ms device time, the batch {batch_ms:.4f} ms, the plain version "
+        f"{plain_ms:.3f} ms")
+    k3_profile_line(f"served {P}x{N}", card_line, ms, inputs, K3_FIRST_DESIGN["served 8x10"])
 
 
 def free_port() -> int:
@@ -1455,7 +1542,7 @@ def main() -> None:
     k2_plan = field_kernel.device_tables(0.3 + cfg.footprint.circular_footprint_offset, res, H, W,
                                          dev)[0]
     k2_occ = field_kernel.occupancy(k2_plan)
-    k3_plan = poly_kernel.launch_plan(1024, 4, 76, False)  # the 1024 x 50 random-yaw batch
+    k3_plan = poly_kernel.launch_plan(1024, 50, 4, 76, False)  # the 1024 x 50 random-yaw batch
     k3_occ = poly_kernel.occupancy(k3_plan)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -1481,7 +1568,7 @@ def main() -> None:
     }
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill")):
                 log(f"ptxas {name}: {line.strip()}")
     for name, line in geometry.items():
         log(f"launch {name} at {H}x{W}: {line}")

@@ -10,7 +10,10 @@ ragged tiles: every layer must stay bit-identical to the plain version.
 
 The grouped polygonal evaluator is kernel 3 (``csrc/poly_paths.cu``): its
 cases hold it to its plain version on the card, ring by ring (chip_smoke.py
-phase 5b's batches at a smaller size). The polygonal batch cases hold the
+phase 5b's batches at a smaller size, with a batch whose rings' first and
+last columns are decided by ties and one of 8 paths, spread over several
+blocks each), two launches to the same bits, and its work counters to the
+function's work counted from the plain version's values. The polygonal batch cases hold the
 CUDA estimator to the same estimator on the CPU (is_safe and dispatch
 equal, traversability within 2e-5, area within rtol 1e-5: only the sums run
 in another order), and the dense circular service must launch kernel 2.
@@ -28,7 +31,8 @@ from traversability_estimation_tpu_torch import (
     TraversabilityEstimator,
 )
 from traversability_estimation_tpu_torch.ops import field_kernel, footprint, update_kernel
-from traversability_estimation_tpu_torch.ops.filters import ChainConfig
+from traversability_estimation_tpu_torch.ops.filters import ChainConfig, fma_f32, sqrt_f32
+from traversability_estimation_tpu_torch.scripts.kernel3_profile import span_boundary_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -249,6 +253,11 @@ MANY_GON = np.float32(
 def _kernel3_batch(case, P=96, N=20):
     """chip_smoke.py phase 5b's batches at the test's size: (positions,
     quaternions, n_poses, footprint, conservative, identity, block tier)."""
+    if case == "span_boundary":
+        _, _, _, pos3, quats, n_poses, fp = span_boundary_batch()
+        return pos3, quats, n_poses, fp, False, True, False
+    if case == "eight_paths":
+        P = 8
     rng = np.random.default_rng(31)
     starts = np.float32([0.4, -0.2]) + rng.uniform(-1.6, 1.6, (P, 2))
     xy = np.concatenate(
@@ -288,9 +297,17 @@ def _kernel3_batch(case, P=96, N=20):
     return pos3, quats, n_poses, fp, conservative, identity, case == "block_tier"
 
 
+def _bits_equal(a, b):
+    """Equal to the bit (floats compared as their int32 patterns)."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
 @pytest.mark.parametrize("case", ["identity", "random_yaw", "conservative_yaw", "block_tier",
                                   "ragged", "off_map", "unknown_map", "octagon_conservative",
-                                  "global_slots", "many_vertices"])
+                                  "global_slots", "many_vertices", "span_boundary",
+                                  "eight_paths"])
 def test_poly_kernel_matches_plain(cuda, case):
     """Kernel 3 against its plain version on the card, chip_smoke.py phase
     5b's bars: one launch; is_safe, each ring's fail and cell count equal;
@@ -303,32 +320,49 @@ def test_poly_kernel_matches_plain(cuda, case):
     so is the weight of a hull that the collinearity band collapses, as on a
     path heading along a footprint edge). "global_slots": the octagon's
     slots forced into the global scratch; "many_vertices": a 700-gon, whose
-    slots exceed the shared memory, through the wrapper."""
+    slots exceed the shared memory, through the wrapper; "span_boundary":
+    a rectangle's vertices on cell centres and borders (ties decide each
+    ring's first and last columns); "eight_paths": a batch too small to
+    fill the card, each path spread over several blocks. A second launch on
+    the same inputs gives the same bits."""
     from traversability_estimation_tpu_torch.ops import poly_kernel
 
-    on_card, _ = _estimator_pair(cuda)
+    res = RES
+    if case == "span_boundary":
+        res, shape, position = span_boundary_batch()[:3]
+        on_card = TraversabilityEstimator(EstimatorConfig(resolution=res), device=cuda)
+        assert on_card.update(_terrain(*shape, seed=23, nan_frac=0.02, noise=0.012, tilt=0.05),
+                              position=position)
+    else:
+        on_card, _ = _estimator_pair(cuda)
     if case == "unknown_map":
         on_card = TraversabilityEstimator(EstimatorConfig(resolution=RES), device=cuda)
         assert on_card.update(np.full((160, 144), np.nan, np.float32), position=(0.4, -0.2))
     pos3, quats, n_poses, fp, conservative, identity, blocks = _kernel3_batch(case)
     ext = pos3[..., :2].max(axis=1) - pos3[..., :2].min(axis=1)
-    group = footprint.path_group_window(fp, ext, RES, True) if identity else \
-        footprint.path_group_window_exact(fp, pos3, quats, RES)
-    block = footprint.path_block_window(fp, pos3, RES, identity) if blocks else None
+    group = footprint.path_group_window(fp, ext, res, True) if identity else \
+        footprint.path_group_window_exact(fp, pos3, quats, res)
+    block = footprint.path_block_window(fp, pos3, res, identity) if blocks else None
     args = (on_card.query_state, torch.as_tensor(pos3, device=cuda),
             torch.as_tensor(quats, device=cuda), n_poses, fp, group, conservative,
             identity and not conservative, block)
     before = poly_kernel.check_polygonal_paths_grouped.launches
     if case == "global_slots":
         inputs = poly_kernel.kernel_inputs(*args, smem_limit=0)
-        assert inputs.plan.smem_bytes == 0 and inputs.slots is not None
+        assert inputs.plan.smem_bytes == poly_kernel.FIXED_SMEM and inputs.slots is not None
         got = poly_kernel.launch(inputs, return_segments=True)
     else:
         got = poly_kernel.check_polygonal_paths_grouped(*args, return_segments=True)
     torch.cuda.synchronize()
     assert poly_kernel.check_polygonal_paths_grouped.launches == before + 1
-    assert (poly_kernel.launch_plan(1, len(fp), 1, conservative).smem_bytes == 0) == (
+    assert (poly_kernel.launch_plan(1, 2, len(fp), 1, conservative).scratch_words > 0) == (
         case == "many_vertices")
+    inputs = poly_kernel.kernel_inputs(*args, smem_limit=0 if case == "global_slots" else
+                                       poly_kernel.SMEM_LIMIT)
+    if case == "eight_paths":
+        assert inputs.plan.cluster > 1 and inputs.plan.grid[0] > len(pos3)
+    again = poly_kernel.launch(inputs, return_segments=True)
+    assert all(_bits_equal(a, b) for a, b in zip(got, again))
     want = footprint.check_polygonal_paths_grouped(*args, return_segments=True)
     for g, w in zip(got, want):
         assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
@@ -346,6 +380,79 @@ def test_poly_kernel_matches_plain(cuda, case):
     cond = abs_sum / torch.where(single, weights[:, 0].abs(), w_seg.sum(1).abs()).clamp_min(1e-12)
     assert bool(((got[1] - want[1]).abs() <= 2e-5 * cond).all())
     assert bool(((got[2] - want[2]).abs() <= 1e-5 * abs_sum + 1e-6).all())
+
+
+def _function_work(state, pos3, quats, n_poses, fp, window, conservative):
+    """(hull point tests, searches, straddle tests) that the grouped
+    evaluator needs on a path-tier batch, counted from the plain version's
+    own values: per pair of a segment's hull points that is no duplicate
+    edge, its tests up to the first point outside (ops/hull.py's band); per
+    ring and window column, one search per straddling edge; per ring, its
+    edges on each column whose centre line lies within its y range."""
+    positions, quaternions, n_poses, fp = footprint._path_inputs(
+        state, pos3, quats, n_poses, fp)
+    polys = footprint.transform_footprint(fp, positions, quaternions)  # (P, N, V, 2)
+    rings = footprint._segment_rings(polys, positions, fp, conservative, False)[0]
+    prev, cur = polys[:, :-1], polys[:, 1:]
+    if conservative:
+        d = (positions[:, 1:, :2] - positions[:, :-1, :2])[:, :, None]
+        pts = torch.cat([prev, cur - d, cur, prev + d], 2)
+    else:
+        pts = torch.cat([prev, cur], 2)
+    px, py = pts[..., 0], pts[..., 1]
+    jx = px[..., None, :, None] - px[..., :, None, None]  # (.., i, j, 1)
+    jy = py[..., None, :, None] - py[..., :, None, None]
+    kx = px[..., None, None, :] - px[..., :, None, None]  # (.., i, 1, k)
+    ky = py[..., None, None, :] - py[..., :, None, None]
+    cross = fma_f32(jx, ky, -(jy * kx))
+    dot = fma_f32(jx, kx, jy * ky)
+    len2 = fma_f32(jx, jx, jy * jy)
+    eps = 3e-6 * sqrt_f32(len2 * fma_f32(kx, kx, ky * ky)) + 1e-30
+    fails = ~((cross > eps) | ((cross.abs() <= eps) & (dot >= -eps) & (dot <= len2 + eps)))
+    M = pts.shape[-2]
+    tests = torch.where(fails.any(-1), fails.to(torch.int64).argmax(-1) + 1, M)  # (.., i, j)
+    same = (px[..., :, None] == px[..., None, :]) & (py[..., :, None] == py[..., None, :])
+    idx = torch.arange(M)
+    dup = (same & (idx[:, None] > idx[None, :])).any(-1)
+    skip = dup[..., :, None] | dup[..., None, :] | same
+    hull_tests = int(torch.where(skip, 0, tests).sum())
+    wi, wj = window
+    gpad = max(wi, wj)
+    xy = positions[..., :2]
+    sj = footprint._window_starts(state, footprint._index_of(
+        state, 0.5 * (xy.amax(1) + xy.amin(1))), wi, wj, gpad)[1]
+    gj = (sj[:, None] - gpad) + torch.arange(wj)
+    pyc = footprint._cell_coord(footprint._origin_offset(state)[1], gj.to(torch.float32),
+                                state.resolution)  # (P, wj)
+    searches = straddles = 0
+    for ring in [polys[:, 0]] + list(rings.unbind(1)):  # (P, m, 2) each
+        y = ring[..., 1]
+        yp = torch.roll(y, 1, dims=1)
+        cond = (y[:, :, None] > pyc[:, None]) != (yp[:, :, None] > pyc[:, None])
+        searches += int(cond.sum())
+        span = (pyc >= y.amin(1, keepdim=True)) & (pyc < y.amax(1, keepdim=True))
+        straddles += int(span.sum()) * ring.shape[1]
+    return hull_tests, searches, straddles
+
+
+@pytest.mark.parametrize("case", ["random_yaw", "conservative_yaw"])
+def test_poly_kernel_counts_the_function_work(cuda, case):
+    """Kernel 3's counting instantiation (``work_counts``, the bound's
+    inputs) reports the function's work, counted from the plain version's
+    values on the CPU. The first design counted the same hull point tests
+    and searches: 8,740,377 and 3,514,478 at chip_smoke.py's 1024 x 50
+    random-yaw batch, which the redesigned kernel counts too."""
+    from traversability_estimation_tpu_torch.ops import poly_kernel
+
+    on_card, on_cpu = _estimator_pair(cuda)
+    pos3, quats, n_poses, fp, conservative, _, _ = _kernel3_batch(case, P=24, N=12)
+    group = footprint.path_group_window_exact(fp, pos3, quats, RES)
+    inputs = poly_kernel.kernel_inputs(
+        on_card.query_state, torch.as_tensor(pos3, device=cuda),
+        torch.as_tensor(quats, device=cuda), n_poses, fp, group, conservative, False)
+    got = poly_kernel.work_counts(inputs)
+    want = _function_work(on_cpu.query_state, pos3, quats, n_poses, fp, group, conservative)
+    assert got == want and min(want) > 0
 
 
 @pytest.mark.parametrize("orientation", ["random_yaw", "identity"])

@@ -1,9 +1,11 @@
 """Kernel 3's wrapper (``ops/poly_kernel.py``) on the CPU: the launch plan
-the ``.cu`` checks, the plain version on a CPU state (exactly, with no
-launch counted, and against jitted JAX), no fallback on a CUDA state, the
-three grouped call sites reaching the wrapper, and a footprint past the
-kernel's shared memory going to it all the same (its slots in a global
-scratch). The kernel itself runs on the card
+the ``.cu`` checks (a cluster of blocks per path where the batch is too
+small to fill the card), the plain version on a CPU state (exactly, with no
+launch counted, and against jitted JAX, also on the span-boundary batch
+whose rings' first and last columns are decided by ties), no fallback on a
+CUDA state, the three grouped call sites reaching the wrapper, and a
+footprint past the kernel's shared memory going to it all the same (its
+slots in a global scratch). The kernel itself runs on the card
 (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
 """
 
@@ -18,6 +20,7 @@ from traversability_estimation_tpu.ops import footprint as jfp
 from traversability_estimation_tpu_torch import EstimatorConfig, TraversabilityEstimator
 from traversability_estimation_tpu_torch.ops import footprint as tfp
 from traversability_estimation_tpu_torch.ops import poly_kernel
+from traversability_estimation_tpu_torch.scripts.kernel3_profile import span_boundary_batch
 
 RES = 0.03
 RECT = np.float32([[0.3, 0.2], [0.3, -0.2], [-0.3, -0.2], [-0.3, 0.2]])
@@ -84,50 +87,74 @@ MODES = {
 
 
 @pytest.mark.parametrize("case", [
-    # (P, V, wi, conservative) -> (ring, n_bits, smem bytes)
-    ((1024, 4, 68, False), (8, 7, 1536)),
-    ((1024, 4, 76, True), (16, 7, 3072)),
-    ((8, 8, 63, True), (32, 6, 6144)),
-    ((3, 6, 64, False), (12, 7, 2304)),
-    ((1, 3, 1, False), (6, 1, 1152)),
+    # (P, N, V, wi, conservative) -> (ring, n_bits, blocks per path, smem bytes)
+    ((1024, 50, 4, 68, False), (8, 7, 1, 1792)),
+    ((1024, 50, 4, 76, True), (16, 7, 1, 3328)),
+    ((8, 50, 8, 63, True), (32, 6, 7, 6400)),
+    ((3, 20, 6, 64, False), (12, 7, 3, 2560)),
+    ((1, 1, 3, 1, False), (6, 1, 1, 1408)),
 ], ids=lambda c: str(c[0]) if isinstance(c[0], tuple) else None)
 def test_launch_plan_integers(case):
-    (P, V, wi, conservative), (ring, n_bits, smem) = case
-    plan = poly_kernel.launch_plan(P, V, wi, conservative)
-    assert (plan.ring, plan.n_bits, plan.smem_bytes, plan.scratch_words) == (ring, n_bits, smem, 0)
-    assert plan.grid == (P, 1) and plan.block == (256, 1) and plan.warps == 8 * P
-    # one warp per segment of a block: the plain version's SEG_BLOCK
+    (P, N, V, wi, conservative), (ring, n_bits, cluster, smem) = case
+    plan = poly_kernel.launch_plan(P, N, V, wi, conservative)
+    assert (plan.ring, plan.n_bits, plan.cluster, plan.smem_bytes, plan.scratch_words) == (
+        ring, n_bits, cluster, smem, 0)
+    assert plan.grid == (P * cluster, 1) and plan.block == (256, 1)
+    assert plan.warps == 8 * P * cluster
+    # a block's warps take a ring block of the plain version's SEG_BLOCK
+    # rings; a path has at most one block per ring block and 8 in all
     assert plan.block[0] // 32 == tfp.SEG_BLOCK
+    assert 1 <= plan.cluster <= min(-(-N // tfp.SEG_BLOCK), 8)
     # the rounds the plain version's search runs
     assert plan.n_bits == max(1, int(np.ceil(np.log2(wi + 1))))
 
 
+@pytest.mark.parametrize("P, N, cluster", [(8, 10, 2), (8, 50, 7), (8, 200, 8), (100, 50, 6),
+                                           (528, 50, 1), (1024, 50, 1), (8, 1, 1)])
+def test_launch_plan_spreads_small_batches(P, N, cluster):
+    """A batch too small to fill the card's resident blocks (132 SMs x 4)
+    spreads each path over a cluster of blocks, at most one per ring block
+    of 8 rings and 8 in all: 8 paths start more blocks than paths; one that
+    fills it keeps one block per path."""
+    plan = poly_kernel.launch_plan(P, N, 4, 76, False)
+    assert plan.cluster == cluster and plan.grid == (P * cluster, 1)
+    if P == 8 and N > 8:
+        assert plan.grid[0] > P
+    assert poly_kernel.launch_plan(P, N, 4, 76, False, sm_count=1).cluster == 1
+
+
 def test_launch_plan_shared_memory_limit():
-    """The largest footprints whose slots shared memory holds: 302 vertices
-    conservative (1,208 points), 605 plain. One more vertex, or a limit of
-    0, puts the slots in a global scratch of one block's slots per path and
-    asks for no shared memory."""
-    for V, conservative in ((302, True), (605, False)):
-        inside = poly_kernel.launch_plan(5, V, 40, conservative)
-        assert 0 < inside.smem_bytes <= poly_kernel.SMEM_LIMIT and inside.scratch_words == 0
-        past = poly_kernel.launch_plan(5, V + 1, 40, conservative)
-        assert past.smem_bytes == 0 and past.ring == (V + 1) * (4 if conservative else 2)
-        assert past.scratch_words == 5 * 8 * 6 * past.ring
+    """The largest footprints whose slots shared memory holds beside the
+    block's fixed take: 302 vertices conservative (1,208 points), 604
+    plain. One more vertex, or a limit below the fixed take, puts the slots
+    in a global scratch of one block's slots per block and asks for the
+    fixed take alone."""
+    for V, conservative in ((302, True), (604, False)):
+        inside = poly_kernel.launch_plan(5, 50, V, 40, conservative)
+        assert poly_kernel.FIXED_SMEM < inside.smem_bytes <= poly_kernel.SMEM_LIMIT
+        assert inside.scratch_words == 0
+        past = poly_kernel.launch_plan(5, 50, V + 1, 40, conservative)
+        assert past.smem_bytes == poly_kernel.FIXED_SMEM
+        assert past.ring == (V + 1) * (4 if conservative else 2)
+        assert past.scratch_words == past.grid[0] * 8 * 6 * past.ring
         assert (past.grid, past.block, past.n_bits) == (inside.grid, inside.block, inside.n_bits)
-    forced = poly_kernel.launch_plan(3, 4, 40, False, smem_limit=0)
-    assert (forced.smem_bytes, forced.scratch_words) == (0, 3 * 8 * 6 * 8)
+    forced = poly_kernel.launch_plan(3, 20, 4, 40, False, smem_limit=0)
+    assert (forced.smem_bytes, forced.scratch_words) == (poly_kernel.FIXED_SMEM, 9 * 8 * 6 * 8)
 
 
 def test_work_counts():
     """Bytes and operations of the bound: the swept hull costs 6 per
-    vertex, the edge-matrix hull 14 per point test the kernel counts; each
+    vertex, the edge-matrix hull 14 per point test the kernel counts; a
+    straddle test 2 (counted over each ring's own span of columns); each
     binary search its set-up and rounds; each inside cell 3."""
     assert poly_kernel.kernel_bytes(2, 3, 4, 100) == 2 * 3 * 28 + 8 + 32 + 400 + 18 + 78
-    swept = poly_kernel.kernel_operations(16, 50, 4, 68, 56, False, True, 10_000, 0, 500)
-    hull = poly_kernel.kernel_operations(16, 50, 4, 68, 56, False, False, 10_000, 70_000, 500)
+    swept = poly_kernel.kernel_operations(16, 50, 4, 68, False, True, 10_000, 0, 500, 40_000)
+    hull = poly_kernel.kernel_operations(16, 50, 4, 68, False, False, 10_000, 70_000, 500, 40_000)
     assert hull - swept == 14 * 70_000 - 16 * 49 * 6 * 4
-    more = poly_kernel.kernel_operations(16, 50, 4, 68, 56, False, False, 20_000, 70_000, 600)
+    more = poly_kernel.kernel_operations(16, 50, 4, 68, False, False, 20_000, 70_000, 600, 40_000)
     assert more - hull == 30_000 + 100 * (6 + 5 * 7)
+    wider = poly_kernel.kernel_operations(16, 50, 4, 68, False, False, 20_000, 70_000, 600, 45_000)
+    assert wider - more == 2 * 5_000
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -197,6 +224,41 @@ def test_wrapper_on_a_cpu_state_matches_jax(est, mode):
     np.testing.assert_allclose(out_t[1].numpy(), np.asarray(out_j[1]), rtol=0, atol=2e-5)
     np.testing.assert_allclose(out_t[2].numpy(), np.asarray(out_j[2]), rtol=1e-5, atol=1e-6)
     assert jax.devices()[0].platform == "cpu"
+
+
+def test_span_boundary_batch_matches_jax():
+    """The span-boundary batch (a rectangle's vertices exactly on cell
+    centres and cell borders: each ring's first and last columns are
+    decided by ties) through the module holding kernel 3, on a CPU state,
+    against the JAX package's grouped evaluator: verdicts exact,
+    traversability within 2e-5, areas within rtol 1e-5."""
+    res, shape, position, pos3, quats, n_poses, fp = span_boundary_batch()
+    e = TraversabilityEstimator(EstimatorConfig(resolution=res), device="cpu")
+    assert e.update(_terrain(*shape, seed=23), position=position)
+    ext = pos3[..., :2].max(axis=1) - pos3[..., :2].min(axis=1)
+    gw = tfp.path_group_window(fp, ext, res, True)
+    qs = e.query_state
+    jqs = jfp.QueryState(
+        traversability=jnp.asarray(qs.traversability.numpy()),
+        traversable_mask=jnp.asarray(qs.traversable_mask.numpy()),
+        position=jnp.asarray(qs.position.numpy()), resolution=res,
+        default_traversability=qs.default_traversability,
+    )
+    out_j = jest_mod._polygonal_paths_grouped_jit(
+        jqs, jnp.asarray(pos3), jnp.asarray(quats), jnp.asarray(n_poses), jnp.asarray(fp), gw,
+        False, True, None)
+    out_t = poly_kernel.check_polygonal_paths_grouped(qs, pos3, quats, n_poses, fp, gw, False, True)
+    np.testing.assert_array_equal(out_t[0].numpy(), np.asarray(out_j[0]))
+    np.testing.assert_allclose(out_t[1].numpy(), np.asarray(out_j[1]), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(out_t[2].numpy(), np.asarray(out_j[2]), rtol=1e-5, atol=1e-6)
+    safe = out_t[0].numpy()
+    assert safe.any() and not safe.all()
+    # the ties are there: every ring point lies on a cell centre or a border
+    p0 = np.asarray(qs.position) + np.asarray(shape) * res / 2
+    v = pos3[:, :, None, :2] + fp[None, None]
+    half_cells = (p0 - v) / res * 2
+    assert np.array_equal(half_cells, np.round(half_cells))
+    assert (np.round(half_cells) % 2 == 1).any() and (np.round(half_cells) % 2 == 0).any()
 
 
 class _CudaState(tfp.QueryState):
@@ -291,7 +353,7 @@ def test_footprint_past_shared_memory_reaches_the_wrapper(est, spy):
     the plain version's results here."""
     many = np.float32([[0.3 * np.cos(a), 0.2 * np.sin(a)]
                        for a in np.arange(700) * -2 * np.pi / 700])
-    assert poly_kernel.launch_plan(1, len(many), 1, False).smem_bytes == 0
+    assert poly_kernel.launch_plan(1, 5, len(many), 1, False).scratch_words > 0
     pos3, quats, n_poses = _batch(seed=7, P=4, N=5)
     got = est.check_polygonal_paths_batch(pos3, quats, n_poses, many)
     stats = est.last_polygonal_dispatch

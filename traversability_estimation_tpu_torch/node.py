@@ -26,8 +26,9 @@ for planner-in-the-loop runs).
 
 Threads and the device: the timer thread and every service thread queue
 their work on the device's one current stream, so device work stays ordered.
-On CUDA the constructor builds and loads both kernels, so that no two
-threads meet at a kernel's first use.
+On CUDA the constructor builds and loads the three kernels (the map
+update, the circle field and the grouped polygonal evaluator), so that no
+two threads meet at a kernel's first use and no request pays for a build.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from traversability_estimation_tpu_torch.models.estimator import (
     TraversabilityEstimator,
     TraversabilityResult,
 )
-from traversability_estimation_tpu_torch.ops import field_kernel, update_kernel
+from traversability_estimation_tpu_torch.ops import field_kernel, poly_kernel, update_kernel
 from traversability_estimation_tpu_torch.utils.config import (
     EstimatorConfig,
     config_from_documents,
@@ -100,6 +101,7 @@ class TraversabilityNode:
         if self.estimator.device.type == "cuda":
             update_kernel.library()
             field_kernel.library()
+            poly_kernel.library()
         self.source = source
         self.persistent_map_length = persistent_map_length
         self.recenter_on_robot = recenter_on_robot

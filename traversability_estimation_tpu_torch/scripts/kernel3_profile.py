@@ -81,6 +81,35 @@ def served_paths():
     return pos3, quats_of(rng.uniform(0, 2 * np.pi, (SERVED_P, SERVED_N)))
 
 
+def span_boundary_batch(P: int = 16, N: int = 12):
+    """Identity-yaw paths of a rectangle whose vertices lie exactly on cell
+    centres and cell borders, so that the first and last columns (and rows)
+    of each ring's span are decided by ties: a 160 x 144 map at 1/32 m
+    centred on the origin (cell centres p0 - (g + 1/2) / 32, every
+    coordinate exact in float32), a footprint of 20 x 15 cells, poses on
+    cell centres (even paths) or cell corners (odd paths), moving by whole
+    and half cells along an axis. Returns (resolution, map shape, map
+    position, positions (P, N, 3), quaternions (P, N, 4), n_poses (P,),
+    footprint (4, 2))."""
+    res = 1.0 / 32.0
+    shape, position = (160, 144), (0.0, 0.0)
+    p0 = np.array([shape[0] * res / 2, shape[1] * res / 2])
+    rng = np.random.default_rng(17)
+    g = rng.integers(30, 110, (P, 2)).astype(np.float64)
+    starts = p0 - (g + np.where(np.arange(P) % 2 == 0, 0.5, 0.0)[:, None]) * res
+    axis = rng.integers(0, 2, P)
+    steps = rng.choice([-1.0, -0.5, 0.0, 0.5, 1.0], (P, N - 1)) * res
+    d = np.zeros((P, N - 1, 2))
+    d[np.arange(P), :, axis] = steps
+    xy = starts[:, None] + np.concatenate([np.zeros((P, 1, 2)), np.cumsum(d, 1)], 1)
+    pos3 = np.concatenate([xy, np.zeros((P, N, 1))], -1).astype(np.float32)
+    quats = np.zeros((P, N, 4), np.float32)
+    quats[..., 3] = 1.0
+    fp = (np.float32([[10.0, 7.5], [10.0, -7.5], [-10.0, -7.5], [-10.0, 7.5]]) * res).astype(
+        np.float32)
+    return res, shape, position, pos3, quats, np.full((P,), N, np.int32), fp
+
+
 def run_one(root: Path) -> dict:
     """Every batch on the tree at `root`: one JSON-able dict."""
     sys.path.insert(0, str(root))
@@ -102,7 +131,7 @@ def run_one(root: Path) -> dict:
                           capture_output=True, text=True, timeout=60).stdout.strip()
     build.build(["fused_update", "poly_paths"])
     ptxas = [line.strip() for line in build.build_log("poly_paths").splitlines()
-             if "registers" in line or "spill" in line]
+             if any(w in line for w in ("entry function", "registers", "spill"))]
 
     def device_ms(fn, reps):
         """chip_smoke.py's device time per call: the calls queued behind a
@@ -172,7 +201,8 @@ def run_one(root: Path) -> dict:
             row["stage_cycles"] = dict(zip(poly_kernel.STAGES, cyc))
             row["stage_shares"] = {k: c / total for k, c in zip(poly_kernel.STAGES, cyc)}
         out["batches"][name] = row
-        print(f"{name} ({card}): {row['ms_median']:.4f} ms (runs {', '.join(f'{m:.4f}' for m in ms)}), "
+        runs = ", ".join(f"{m:.4f}" for m in ms)
+        print(f"{name} ({card}): {row['ms_median']:.4f} ms (runs {runs}), "
               f"window {row['window']}, grid {row['grid']} x block {row['block']}, smem "
               f"{row['smem_bytes']} B, {row['resident_blocks_per_sm']} blocks/SM; work "
               f"{row['work']}, {row['cells']} cells; mismatches {exact}, two launches "
@@ -206,8 +236,9 @@ def run_pairs(parent: Path, out_dir: Path, rounds: int) -> dict:
         sides = {s: [m for run in runs[s] for m in run["batches"][name]["ms"]] for s in runs}
         summary["batches"][name] = {s: {"median": statistics.median(v), "min": min(v),
                                         "max": max(v)} for s, v in sides.items()}
-        print(f"{name} ({summary['card']}): parent median {summary['batches'][name]['parent']['median']:.4f} ms, "
-              f"change {summary['batches'][name]['change']['median']:.4f} ms", flush=True)
+        med = {s: summary["batches"][name][s]["median"] for s in runs}
+        print(f"{name} ({summary['card']}): parent median {med['parent']:.4f} ms, change "
+              f"{med['change']:.4f} ms", flush=True)
     return summary
 
 
