@@ -6,7 +6,7 @@ CUDA device and the CUDA toolkit (``nvcc``); without a device it exits 1
 before printing any result.
 
 Phases (any failure exits non-zero):
-1. the card's name and power limit; build the three kernels from ``csrc/``;
+1. the card's name and power limit; build the four kernels from ``csrc/``;
    each kernel's ptxas report, launch geometry, and resident blocks and
    warps per SM;
 2. kernel 1 (fused map update) against its plain torch version on the card:
@@ -24,7 +24,7 @@ Phases (any failure exits non-zero):
    bit-identical;
 4. the main path (config 3): estimator on cuda, update of the 336^2 map at
    0.03 m, 1024 circular paths x 50 poses at radius 0.3, and a few
-   FootprintPaths; both kernels must have launched; path verdicts equal to
+   FootprintPaths; kernels 1, 2 and 4 must have launched; path verdicts equal to
    the same run on the CPU, traversability within 1e-6 of it. CUDA-event
    times of each stage and of each plain version;
 5. the polygonal path (config 3 again): update, then the 1024 x 50 paths
@@ -90,8 +90,22 @@ Phases (any failure exits non-zero):
    (the 0.9 x 0.6 m footprint) and 10 roaming ticks (a 20 m window = 667 x
    667 cells recentred on the robot), on a circle of 5 m that crosses a
    plateau edge of the terrain (verdicts of both kinds), each held the same
-   way to the unfused sequence and, for 3 ticks, to the CPU. Times per tick, of both kernels at
-   the tick's shapes, and of the tick's copies;
+   way to the unfused sequence and, for 3 ticks, to the CPU. Kernel 4 launches
+   once per circular or roaming tick. Times per tick, of both kernels at
+   the tick's shapes, and of the tick's copies.
+   7g. kernel 4 (the circular path batch, ``csrc/circ_paths.cu``) against
+   its plain version (``check_circular_paths_plain``) on the same CUDA
+   tensors: phase 4's 1024 x 50 batch on config 3's map, the last tick's
+   256 x 10 on the query crop it answered on, and three edge batches on
+   config 3's map (pose counts 0, 1, 2, N and N + 1, paths off the map and
+   on both borders, ~1 m segments cut at 8 cells, zero-length paths and
+   segments; a default traversability of 0.5 and of 0; a batch of single
+   poses). Bars: one launch a call, is_safe equal, traversability within
+   1e-6, a second launch bit-identical, verdicts of both kinds over the
+   batches (the tick's are all safe: config 4's circle meets no plateau). CUDA-event
+   times of kernel 4 and of the plain version on each batch, and at the
+   1024 x 50 batch the wrapper call's and the bound from the segments and
+   samples this batch reads;
 8. the serving path, as a user starts it: a ``TraversabilityNode`` on the
    card under the reference-format configuration (its fusion expression runs
    inside kernel 1) behind a ``TraversabilityServer`` on 127.0.0.1, driven by
@@ -107,8 +121,9 @@ Phases (any failure exits non-zero):
    ``load_elevation_map`` of that bag, ``update_parameters`` (documents that
    change the fusion expression), ``update_traversability``,
    ``check_footprint_path``, ``get_traversability``. Bars: every response
-   ok; kernel 1 launched once per update request and kernel 2 once per map
-   epoch with circular paths; against the same requests to nodes on the CPU
+   ok; kernel 1 launched once per update request, kernel 2 once per map
+   epoch with circular paths, kernels 3 and 4 once per request's polygonal
+   and circular batch; against the same requests to nodes on the CPU
    (node A's first 6 ticks and its submap, every request of node B) is_safe
    and polygons equal, traversability within 1e-6, area within rtol 1e-5,
    step layers and masks exact, float layers within 1e-6; the saved bag
@@ -128,8 +143,9 @@ Phases (any failure exits non-zero):
    ``sharded_online_tick`` on a 1667 x 1667 map, 133 x 133 submaps, 256
    paths x 10 poses, 10 ticks on the 5 m circle; after each tick the map
    state bit-identical to ``update()`` of the merged elevation and the
-   verdicts equal to ``check_circular_paths`` on the same field (the
-   per-sample mode is exact); a merge start off the map raises. (c) config
+   verdicts equal to ``check_circular_paths_plain`` on the same field (the
+   per-sample mode is exact: it is the plain version's arithmetic, which
+   kernel 4's sums do not repeat bit for bit); a merge start off the map raises. (c) config
    5's tile, a 60 m map at 0.03 m (2000 x 2000): ``scripts/rollouts.py``'s
    100,000 rollouts x 12 poses, ``max_segment_cells`` 16, through
    ``check_circular_paths_tiled`` (the per-path mode), and 4,096 of them
@@ -166,6 +182,11 @@ Phases (any failure exits non-zero):
 11. a ``kernels`` JSON line (launches summed over phases 4, 5, 7, 8, 9 and
    10; kernel 3 over phases 5, 7, 8, 9 and 10), the card line, and the
    contract line ``{"ok": true, "device": {...}}`` last.
+
+Kernel 4's launches are tallied exactly in every phase that counts
+launches: once per ``check_circular_paths`` call on the card (a circular
+batch, a tick, a request's circular paths, the rollout script's start
+check and steps), never on the tiled path.
 """
 
 from __future__ import annotations
@@ -473,14 +494,16 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
 
     a_counts = stages["node A, updates and paths"]
     if a_counts != {"fused_update": N_UPDATES, "circle_field": N_UPDATES,
-                    "poly_paths": N_UPDATES}:
+                    "poly_paths": N_UPDATES, "circ_paths": N_UPDATES}:
         fail(f"serving path: kernel 1 must launch once per update request, kernel 2 once "
-             f"per map epoch and kernel 3 once per request's polygonal batch: {a_counts} over "
-             f"{N_UPDATES} updates")
+             f"per map epoch and kernels 3 and 4 once per request's polygonal and circular "
+             f"batch: {a_counts} over {N_UPDATES} updates")
     # node B: the pushed map, the loaded bag and the update after the reload;
     # one circle field for the path request
-    if stages["node B"] != {"fused_update": 3, "circle_field": 1, "poly_paths": 0}:
-        fail(f"serving path: node B launched {stages['node B']}, expected 3 updates and 1 field")
+    if stages["node B"] != {"fused_update": 3, "circle_field": 1, "poly_paths": 0,
+                            "circ_paths": 1}:
+        fail(f"serving path: node B launched {stages['node B']}, expected 3 updates, 1 field "
+             "and 1 circular batch")
 
     def compare_paths(got_resp, want_resp, label):
         err, n_safe, n_poly = 0.0, 0, 0
@@ -545,7 +568,7 @@ def serving_phase(card_line, res, terrain, rect, source, zero_counts, counts):
         log(f"serving request ({card_line}): {kind}: {len(ms)} x, wall median "
             f"{np.median(ms):.3f} ms, max {np.max(ms):.3f} ms, first {ms[0]:.3f} ms")
     return {k: sum(st[k] for st in stages.values())
-            for k in ("fused_update", "circle_field", "poly_paths")}
+            for k in ("fused_update", "circle_field", "poly_paths", "circ_paths")}
 
 
 # the kernel-3 phase's batches beyond phase 5's: block-tier paths, convex
@@ -875,6 +898,115 @@ def free_port() -> int:
 # phase 9's sizes: (b) config 4's map and submaps, 10 ticks on a 5 m circle of
 # 256 paths; (c) config 5's 60 m tile at 0.03 m, its rollout batch and a
 # polygonal batch
+def circ_edge_batch(est, res, default, N, seed, max_cells=None):
+    """Kernel 4's edge batch on a query state (map centre at the origin), its
+    default traversability replaced by `default`: 64 random-walk paths of
+    `N` poses, pose counts 0, 1, 2, N and N + 1 among them, a path wholly
+    off the map, one on its near border (row 0) and one on its far border
+    (off the map), one of segments of ~1 m (33 cells), one of zero length
+    and one whose first segments have zero length. Returns the arguments of
+    ``check_circular_paths`` on the estimator's query state: radius 0.3,
+    offset 0.15, `max_cells` samples' cells (by default the estimator's
+    count for the batch), the state's field, single-pose paths present."""
+    import torch
+
+    from traversability_estimation_tpu_torch.ops import field_kernel, footprint
+
+    state = est.query_state
+    st = footprint.QueryState(state.traversability, state.traversable_mask, state.position,
+                              res, default)
+    rng = np.random.default_rng(seed)
+    P = 64
+    starts = rng.uniform(-1.5, 1.5, (P, 2))
+    poses = np.concatenate(
+        [starts[:, None], starts[:, None] + np.cumsum(rng.uniform(-0.1, 0.1, (P, N - 1, 2)), 1)],
+        1)
+    n_poses = rng.integers(0, N + 2, P).astype(np.int32)
+    n_poses[:5] = [0, 1, 2, N, N + 1]
+    half = state.shape[0] * res / 2
+    poses[5] += 3 * half
+    poses[6, :, 0] = half
+    poses[7, :, 1] = -half
+    poses[8] = poses[8, :1] + np.arange(N)[:, None] * np.float32([0.9, -0.4])
+    poses[9] = poses[9, :1]
+    poses[10, : N // 2] = poses[10, :1]
+    poses = poses.astype(np.float32)
+    if max_cells is None:
+        max_cells = est._max_segment_cells(poses, n_poses)
+    dev = state.traversability.device
+    field = field_kernel.dense_circle_field(st, 0.45, 0.3)
+    return (st, torch.as_tensor(poses, device=dev), torch.as_tensor(n_poses, device=dev), 0.3,
+            0.15, max_cells, field, True)
+
+
+def circ_kernel_phase(card_line, batches, device_ms, cuda_ms):
+    """Phase 7g: kernel 4 (the circular path batch, ``csrc/circ_paths.cu``)
+    against its plain version on the card (see the module docstring).
+    `batches`: name -> the arguments of ``check_circular_paths``, on the
+    card; the first is the main path's 1024 x 50. `device_ms` / `cuda_ms`:
+    the kernel's device time and a call's time per call. Returns kernel 4's
+    numbers for the kernels line: the largest difference over the batches,
+    and at the first batch its time, the plain version's and its bound."""
+    import torch
+
+    from traversability_estimation_tpu_torch.ops import circ_kernel, footprint
+    from traversability_estimation_tpu_torch.utils import roofline
+
+    worst, n_safe_all, n_all = 0.0, 0, 0
+    for name, args in batches.items():
+        P, N = args[1].shape[:2]
+        before = circ_kernel.check_circular_paths.launches
+        got = footprint.check_circular_paths(*args)
+        if circ_kernel.check_circular_paths.launches != before + 1:
+            fail(f"kernel 4 {name}: {circ_kernel.check_circular_paths.launches - before} "
+                 "launches for one call")
+        again = footprint.check_circular_paths(*args)
+        want = footprint.check_circular_paths_plain(*args)
+        torch.cuda.synchronize()
+        if got[0].shape != (P,) or got[1].shape != (P,) or not got[0].is_cuda \
+                or not bool(torch.isfinite(got[1]).all()):
+            fail(f"kernel 4 {name}: wrong shape, device or non-finite values")
+        if not torch.equal(got[0], want[0]):
+            fail(f"kernel 4 {name}: is_safe differs from the plain version on "
+                 f"{int((got[0] != want[0]).sum())} of {P} paths")
+        err = float((got[1] - want[1]).abs().max())
+        if err > 1e-6:
+            fail(f"kernel 4 {name}: traversability differs from the plain version by {err:g}")
+        if not (torch.equal(got[0], again[0])
+                and torch.equal(got[1].view(torch.int32), again[1].view(torch.int32))):
+            fail(f"kernel 4 {name}: a second launch gave other bits")
+        n_safe = int(got[0].sum())
+        n_safe_all, n_all = n_safe_all + n_safe, n_all + P
+        worst = max(worst, err)
+        ms = device_ms(lambda: footprint.check_circular_paths(*args), 100)
+        plain_ms = cuda_ms(lambda: footprint.check_circular_paths_plain(*args), 20)
+        log(f"kernel 4 {name} ({card_line}): {P} x {N}, max_segment_cells {args[5]}, "
+            f"{n_safe} safe; against the plain version is_safe equal, trav max diff {err:g}, "
+            f"a second launch bit-identical; {ms:.4f} ms a call on the device"
+            + (" (with check_circles' ops)" if args[7] else "")
+            + f", plain {plain_ms:.4f} ms")
+    # config 4's circle meets no plateau (the tick's paths are all safe);
+    # the other batches hold both verdicts
+    if not 0 < n_safe_all < n_all:
+        fail(f"kernel 4: the verdicts are all alike ({n_safe_all} of {n_all} safe)")
+    name, args = next(iter(batches.items()))
+    state, poses, n_poses, m, single = args[0], args[1], args[2], args[5], args[7]
+    P, N = poses.shape[:2]
+    ms = device_ms(lambda: footprint.check_circular_paths(*args), 100)
+    call_ms = cuda_ms(lambda: footprint.check_circular_paths(*args), 100)
+    plain_ms = cuda_ms(lambda: footprint.check_circular_paths_plain(*args), 20)
+    segments, samples = circ_kernel.work_counts(state, poses, n_poses, m)
+    nbytes = circ_kernel.kernel_bytes(P, N, samples, single)
+    ops = circ_kernel.kernel_operations(P, segments, samples)
+    bound_ms, bound_by = roofline.bound(nbytes, ops)
+    log(f"kernel 4 at {name} ({card_line}): {ms:.4f} ms device time, wrapper call {call_ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms; {segments} segments, {samples} samples read, {nbytes} "
+        f"bytes, {ops} operations: bound {bound_ms:.6f} ms ({bound_by}), "
+        f"{100 * bound_ms / ms:.2f}% of it")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 TILED_MAP_M = 50.0
 TILED_CIRCLE_M = 20.0
 TILED_TICKS = 10
@@ -908,11 +1040,13 @@ def tiled_phase(card_line, res, terrain, cfg, source, zero_counts, counts, timer
     radius, offset = 0.3, cfg.footprint.circular_footprint_offset
     rmax = radius + offset
     halo, fh = sh.required_halo(chain, veto), sh.field_halo(rmax, res)
-    launches = {"fused_update": 0, "circle_field": 0, "poly_paths": 0}
+    launches = {"fused_update": 0, "circle_field": 0, "poly_paths": 0, "circ_paths": 0}
 
     def tally(want, label):
         got = counts()
-        want = {"poly_paths": 0, **want}  # the tiled path runs no grouped evaluator
+        # the tiled path runs no grouped evaluator, and its circular paths
+        # are the tiled path's own composition
+        want = {"poly_paths": 0, "circ_paths": 0, **want}
         if got != want:
             fail(f"tiled path, {label}: kernel launches {got}, expected {want}")
         for k in launches:
@@ -1056,10 +1190,11 @@ def tiled_phase(card_line, res, terrain, cfg, source, zero_counts, counts, timer
         check_layers(layers, {key: ref.traversability_map[key] for key in layers},
                      f"sharded tick {k} vs update() of the merged elevation")
         field = field_kernel.dense_circle_field(ref.query_state, rmax, radius)
-        safe_l, trav_l = footprint.check_circular_paths(
+        safe_l, trav_l = footprint.check_circular_paths_plain(
             ref.query_state, poses, n_poses, radius, offset, 16, field, False)
         if not (same(safe, safe_l.cpu()) and same(trav, trav_l.cpu())):
-            fail(f"sharded tick {k}: verdicts differ from check_circular_paths on the same field "
+            fail(f"sharded tick {k}: verdicts differ from check_circular_paths_plain on the "
+                 "same field "
                  f"({int((safe != safe_l.cpu()).sum())} paths)")
         n_safe.append(int(safe.sum()))
     if not 0 < sum(n_safe) < TILED_TICKS * TILED_TICK_PATHS:
@@ -1075,7 +1210,8 @@ def tiled_phase(card_line, res, terrain, cfg, source, zero_counts, counts, timer
         f"{TILED_TICKS} ticks on a {TILED_CIRCLE_M / 4:g} m circle: kernel 1 and kernel 2 once "
         f"per tick; after every tick "
         f"the map state bit-identical to update() of the merged elevation and the verdicts "
-        f"({n_safe} safe) bit-identical to check_circular_paths on the same field; a merge off "
+        f"({n_safe} safe) bit-identical to check_circular_paths_plain on the same field; a "
+        f"merge off "
         f"the map raises ({refused!r})")
     stage_ms = {
         "tick": timer(lambda: sharded_tick(elev, patch, start, poses, n_poses), 10),
@@ -1242,7 +1378,7 @@ def drivers_phase(card_line, res, cfg, zero_counts, counts, k1_at, k2_at):
     from traversability_estimation_tpu_torch.utils.sources import SyntheticTerrainSource
 
     dev = torch.device("cuda")
-    launches = {"fused_update": 0, "circle_field": 0, "poly_paths": 0}
+    launches = {"fused_update": 0, "circle_field": 0, "poly_paths": 0, "circ_paths": 0}
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
 
     # (a) the card's peaks, and the JAX package's work counts priced at them
@@ -1302,7 +1438,8 @@ def drivers_phase(card_line, res, cfg, zero_counts, counts, k1_at, k2_at):
         n_ticks = row["warmup_ticks"] + row["ticks"]
         want = {"fused_update": n_ticks,
                 "circle_field": 0 if "--footprint" in extra else n_ticks,
-                "poly_paths": n_ticks if "--footprint" in extra else 0}
+                "poly_paths": n_ticks if "--footprint" in extra else 0,
+                "circ_paths": 0 if "--footprint" in extra else n_ticks}
         if got != want:
             fail(f"online loop {label}: kernel launches {got}, expected {want}")
         depth = 3 if row["free_run"] else 1
@@ -1344,10 +1481,12 @@ def drivers_phase(card_line, res, cfg, zero_counts, counts, k1_at, k2_at):
     got = counts()
     if row is None or len(record["steps"]) != steps:
         fail("rollouts: no traversable start, or steps missing")
-    want = {"fused_update": 1 + steps, "circle_field": 1 + steps, "poly_paths": 0}
+    want = {"fused_update": 1 + steps, "circle_field": 1 + steps, "poly_paths": 0,
+            "circ_paths": 1 + steps}
     if got != want:
         fail(f"rollouts: kernel launches {got}, expected {want}: the initial update and the "
-             "start check's whole-map field, then one update and one query-crop field a step")
+             "start check's whole-map field and batch, then one update, one query-crop field "
+             "and one batch a step")
     for k in launches:
         launches[k] += got[k]
     est, start, r0 = record["estimator"], record["start"], record["steps"][0]
@@ -1501,6 +1640,7 @@ def main() -> None:
         )
         from traversability_estimation_tpu_torch.kernels import build
         from traversability_estimation_tpu_torch.ops import (
+            circ_kernel,
             field_kernel,
             footprint,
             poly_kernel,
@@ -1544,6 +1684,8 @@ def main() -> None:
     k2_occ = field_kernel.occupancy(k2_plan)
     k3_plan = poly_kernel.launch_plan(1024, 50, 4, 76, False)  # the 1024 x 50 random-yaw batch
     k3_occ = poly_kernel.occupancy(k3_plan)
+    k4_plan = circ_kernel.launch_plan(1024)  # the main path's 1024 paths
+    k4_occ = circ_kernel.occupancy()
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def launch_line(grid, block, smem, occ, warps):
@@ -1565,6 +1707,8 @@ def main() -> None:
                                     k2_plan.warps),
         "poly_paths": launch_line(k3_plan.grid, k3_plan.block, k3_plan.smem_bytes, k3_occ,
                                   k3_plan.warps) + " (1024 paths)",
+        "circ_paths": launch_line((k4_plan.grid, 1), (k4_plan.block, 1), 0, k4_occ,
+                                  k4_plan.grid * circ_kernel.WARPS) + " (1024 paths)",
     }
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
@@ -1572,8 +1716,8 @@ def main() -> None:
                 log(f"ptxas {name}: {line.strip()}")
     for name, line in geometry.items():
         log(f"launch {name} at {H}x{W}: {line}")
-    if min(*k1_occ, k2_occ, k3_occ) < 1:
-        fail(f"a kernel cannot be resident on an SM: {k1_occ}, {k2_occ}, {k3_occ}")
+    if min(*k1_occ, k2_occ, k3_occ, k4_occ) < 1:
+        fail(f"a kernel cannot be resident on an SM: {k1_occ}, {k2_occ}, {k3_occ}, {k4_occ}")
 
     def cuda_ms(fn, reps, warmup=2):
         for _ in range(warmup):
@@ -1756,6 +1900,7 @@ def main() -> None:
     est = TraversabilityEstimator(EstimatorConfig(resolution=res))
     update_kernel.fused_update.launches = 0
     field_kernel.dense_circle_field.launches = 0
+    circ_kernel.check_circular_paths.launches = 0
     est.update(terrain)
     safe, trav = est.check_circular_paths_batch(poses, n_poses, radius)
     few_res = est.check_footprint_path(few)
@@ -1763,6 +1908,7 @@ def main() -> None:
     launches = {
         "fused_update": update_kernel.fused_update.launches,
         "circle_field": field_kernel.dense_circle_field.launches,
+        "circ_paths": circ_kernel.check_circular_paths.launches,
     }
     log(f"main path launches: {launches}")
     if min(launches.values()) < 1:
@@ -1908,6 +2054,7 @@ def main() -> None:
     update_kernel.fused_update.launches = 0
     field_kernel.dense_circle_field.launches = 0
     poly_kernel.check_polygonal_paths_grouped.launches = 0
+    circ_kernel.check_circular_paths.launches = 0
     t0 = time.perf_counter()
     outs, stats, few_out, layers = drive_polygonal(est)
     torch.cuda.synchronize()
@@ -1916,6 +2063,8 @@ def main() -> None:
         "fused_update": update_kernel.fused_update.launches,
         "circle_field": field_kernel.dense_circle_field.launches,
         "poly_paths": poly_kernel.check_polygonal_paths_grouped.launches,
+        # the circular FootprintPath among the few
+        "circ_paths": circ_kernel.check_circular_paths.launches,
     }
     log(f"polygonal path launches: {poly_launches} (first run {poly_wall:.2f} s wall)")
     if min(poly_launches.values()) < 1:
@@ -2037,6 +2186,7 @@ def main() -> None:
     est_big = TraversabilityEstimator(EstimatorConfig(resolution=res))
     update_kernel.fused_update.launches = 0
     field_kernel.dense_circle_field.launches = 0
+    circ_kernel.check_circular_paths.launches = 0
     t0 = time.perf_counter()
     est_big.update(big)
     safe_b, trav_b = est_big.check_circular_paths_batch(big_poses, n_poses, radius)
@@ -2045,6 +2195,7 @@ def main() -> None:
     big_launches = {
         "fused_update": update_kernel.fused_update.launches,
         "circle_field": field_kernel.dense_circle_field.launches,
+        "circ_paths": circ_kernel.check_circular_paths.launches,
     }
     if min(big_launches.values()) < 1:
         fail(f"a kernel of the large-map path did not launch: {big_launches}")
@@ -2090,11 +2241,13 @@ def main() -> None:
         update_kernel.fused_update.launches = 0
         field_kernel.dense_circle_field.launches = 0
         poly_kernel.check_polygonal_paths_grouped.launches = 0
+        circ_kernel.check_circular_paths.launches = 0
 
     def counts():
         return {"fused_update": update_kernel.fused_update.launches,
                 "circle_field": field_kernel.dense_circle_field.launches,
-                "poly_paths": poly_kernel.check_polygonal_paths_grouped.launches}
+                "poly_paths": poly_kernel.check_polygonal_paths_grouped.launches,
+                "circ_paths": circ_kernel.check_circular_paths.launches}
 
     def check_maps(got, want, label, float_atol):
         """Two traversability maps: the same layers; elevation, the step
@@ -2182,8 +2335,9 @@ def main() -> None:
     online_launches = counts()
     log(f"online loop launches over {N_TICKS} circular ticks: {online_launches} "
         f"(tick 0 unfused on the whole map, {N_TICKS - 1} fused)")
-    if online_launches != {"fused_update": N_TICKS, "circle_field": N_TICKS, "poly_paths": 0}:
-        fail(f"kernels 1 and 2 must launch once per tick, kernel 3 never: {online_launches} "
+    if online_launches != {"fused_update": N_TICKS, "circle_field": N_TICKS, "poly_paths": 0,
+                           "circ_paths": N_TICKS}:
+        fail(f"kernels 1, 2 and 4 must launch once per tick, kernel 3 never: {online_launches} "
              f"over {N_TICKS} ticks")
     if est_on._max_cells_hwm <= 0:
         fail("the fused tick did not run (no sample-count mark)")
@@ -2248,6 +2402,8 @@ def main() -> None:
             fail(f"online roaming: kernel 2 launches {short[kind]} over {n_short} ticks")
         if short[kind]["poly_paths"] != (n_short if kind == "polygonal" else 0):
             fail(f"online {kind}: kernel 3 launches {short[kind]} over {n_short} ticks")
+        if short[kind]["circ_paths"] != (0 if kind == "polygonal" else n_short):
+            fail(f"online {kind}: kernel 4 launches {short[kind]} over {n_short} ticks")
         est_u = blank(n_cells)
         outs_u, maps_u = drive_online(est_u, near, kind, fused=False, footprint=rect,
                                       keep_maps=(n_short - 1,))
@@ -2361,6 +2517,33 @@ def main() -> None:
 
     trace("online tick", one_more_tick, 10, 8)
 
+    # 7g. kernel 4 against its plain version: the main path's 1024 x 50 on
+    # config 3's map, the tick's 256 x 10 on the query crop it answered on,
+    # and the edge batches
+    last_tick = next(traced)
+    drive_online(est_on, [last_tick], "circular")
+    _, _, tick_poses, tick_n = last_tick
+    tick_epoch = est_on._current_epoch()
+    (tick_key,) = [k for k in tick_epoch.fields if k[0] == "tick_crop"]
+    tick_state, tick_field = tick_epoch.fields[tick_key]
+    qs3 = est.query_state
+    circ_batches = {
+        "main path 1024 x 50": (
+            qs3, torch.as_tensor(poses, device=dev), torch.as_tensor(n_poses, device=dev),
+            radius, offset, est._max_segment_cells(poses, n_poses),
+            field_kernel.dense_circle_field(qs3, radius + offset, radius), False),
+        "online tick 256 x 10": (
+            tick_state, torch.as_tensor(tick_poses, device=dev),
+            torch.as_tensor(tick_n, device=dev), radius, offset, est_on._max_cells_hwm,
+            tick_field, False),
+        "edge, default 0.5, segments cut at 8 cells": circ_edge_batch(est, res, 0.5, 12, 21, 8),
+        "edge, default 0": circ_edge_batch(est, res, 0.0, 12, 22),
+        "edge, single poses": circ_edge_batch(est, res, 0.5, 1, 23),
+    }
+    t0 = time.perf_counter()
+    k4 = circ_kernel_phase(card_line, circ_batches, device_ms, cuda_ms)
+    log(f"kernel 4 phase: {time.perf_counter() - t0:.1f} s wall")
+
     # ---- 8. the serving path ----------------------------------------------
     serve_launches = serving_phase(
         card_line, res, terrain, rect, source, zero_counts, counts)
@@ -2420,6 +2603,17 @@ def main() -> None:
          + driver_launches["poly_paths"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None},
+        # not the port of a TPU kernel either: the JAX package's circular path
+        # batch is XLA-fused code; its time, bound and plain time at the main
+        # path's 1024 x 50 batch (phase 7g)
+        {"name": "check_circular_paths", "route": "cuda",
+         "source": "traversability_estimation_tpu_torch/csrc/circ_paths.cu",
+         "replaces": "traversability_estimation_tpu/ops/footprint.py:378",
+         "launches": launches["circ_paths"] + poly_launches["circ_paths"]
+         + online_launches["circ_paths"] + serve_launches["circ_paths"]
+         + tiled_launches["circ_paths"] + driver_launches["circ_paths"],
+         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None},
     ]
     log(json.dumps({"kernels": kernels}))
     log(card_line)

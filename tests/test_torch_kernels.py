@@ -19,6 +19,16 @@ equal, traversability within 2e-5, area within rtol 1e-5: only the sums run
 in another order), and the dense circular service must launch kernel 2.
 The dispatch's window plan on the card gives the NumPy planners' integers
 on the polygonal cell's own inputs.
+
+The circular path batch is kernel 4 (``csrc/circ_paths.cu``): its cases hold
+``check_circular_paths`` on the card (one launch a call) to its plain
+version on the same CUDA tensors at the ``circ_paths_336`` cell's 1024 x 50
+batch, the online tick's 256 x 10 and edge batches (pose counts 0, 1, 2, N
+and more, poses off the map and on its border, segments longer than
+``max_segment_cells``, a path of zero length, a default traversability of 0
+and of 0.5, a batch of single poses): is_safe equal, traversability within
+1e-6 (the plain version's own bar against JAX), two launches to the same
+bits.
 """
 
 import numpy as np
@@ -30,7 +40,12 @@ from traversability_estimation_tpu_torch import (
     FootprintConfig,
     TraversabilityEstimator,
 )
-from traversability_estimation_tpu_torch.ops import field_kernel, footprint, update_kernel
+from traversability_estimation_tpu_torch.ops import (
+    circ_kernel,
+    field_kernel,
+    footprint,
+    update_kernel,
+)
 from traversability_estimation_tpu_torch.ops.filters import ChainConfig, fma_f32, sqrt_f32
 from traversability_estimation_tpu_torch.scripts.kernel3_profile import span_boundary_batch
 
@@ -546,7 +561,8 @@ def test_circle_field_kernel_on_query_crops(cuda, side):
 @pytest.mark.parametrize("mode", ["circular", "roaming", "polygonal"])
 def test_online_tick_card_matches_cpu(cuda, mode):
     """Four ticks on the card and on the CPU: each fused tick launches
-    kernel 1 once and (circular) kernel 2 once; verdicts equal, path
+    kernel 1 once and (circular) kernel 2 once, each circular tick kernel 4
+    once; verdicts equal, path
     traversability within 1e-6, every map layer bit-identical except the
     float chain layers, which agree within 1e-6."""
     from traversability_estimation_tpu_torch import SyntheticTerrainSource
@@ -570,8 +586,10 @@ def test_online_tick_card_matches_cpu(cuda, mode):
         if mode == "roaming":
             kw["recenter_to"] = c
         k1, k2 = update_kernel.fused_update.launches, field_kernel.dense_circle_field.launches
+        k4 = circ_kernel.check_circular_paths.launches
         safe_g, trav_g = pair[0].online_tick(patch, c, poses, n, **kw)
         assert update_kernel.fused_update.launches == k1 + 1
+        assert circ_kernel.check_circular_paths.launches == k4 + (mode != "polygonal")
         fused = k > 0
         if fused and mode != "polygonal":
             assert field_kernel.dense_circle_field.launches == k2 + 1
@@ -669,3 +687,80 @@ def test_measured_peaks_within_the_spec_sheet(cuda):
         assert 0.3 * spec[key] < peaks[key] <= 1.05 * spec[key], key
     assert roofline.measure_static_shift_cost((336, 336), device=cuda) > 0.0
     assert roofline.measure_shift_floor((256, 256), 64, 16, device=cuda) > 0.0
+
+
+# kernel 4's batches: name -> (map side in cells, paths, poses, default
+# traversability)
+CIRC_CASES = {
+    "cell_1024x50": (336, 1024, 50, 0.5),
+    "tick_256x10": (256, 256, 10, 0.5),
+    "edge_default_0.5": (120, 64, 12, 0.5),
+    "edge_default_0": (120, 64, 12, 0.0),
+    "single_poses": (120, 64, 1, 0.5),
+}
+
+
+def _circ_batch(case, cuda):
+    """(state, poses, n_poses, max_segment_cells, field, has_single_pose) of
+    a kernel 4 case, all on the card. The cell's batch is
+    ``circ_paths_336``'s random walk of 0.06 m steps over 80% of the map;
+    the tick's 256 paths start within 1.5 m of a centre and step 0.1 m; the
+    edge batches add every corner of the sampling and the aggregation."""
+    side, P, N, default = CIRC_CASES[case]
+    elev = _terrain(side, side, seed=side, nan_frac=0.01, noise=0.012, tilt=0.05)
+    est = TraversabilityEstimator(EstimatorConfig(resolution=RES), device=cuda)
+    assert est.update(elev, position=(0.2, -0.1))
+    qs = est.query_state
+    state = footprint.QueryState(qs.traversability, qs.traversable_mask, qs.position, RES,
+                                 default)
+    rng = np.random.default_rng(side + N)
+    centre = np.float32([0.2, -0.1])
+    if case == "cell_1024x50":
+        ext = side * RES / 2 * 0.8
+        starts = centre + rng.uniform(-ext, ext, (P, 2))
+        steps = rng.uniform(-0.06, 0.06, (P, N - 1, 2))
+    else:
+        starts = centre + rng.uniform(-1.5, 1.5, (P, 2))
+        steps = rng.uniform(-0.1, 0.1, (P, N - 1, 2))
+    poses = np.concatenate([starts[:, None], starts[:, None] + np.cumsum(steps, 1)], 1)
+    n_poses = np.full((P,), N, np.int32)
+    if case.startswith("edge") or case == "single_poses":
+        n_poses = rng.integers(0, N + 2, P).astype(np.int32)
+        n_poses[:5] = [0, 1, 2, N, N + 1]
+        half = side * RES / 2
+        poses[5] += 3 * half  # wholly off the map
+        poses[6, :, 0] = centre[0] + half  # on the border: row 0
+        poses[7, :, 1] = centre[1] - half  # on the far border: off the map
+        poses[8] = poses[8, :1] + np.arange(N)[:, None] * np.float32([0.9, -0.4])  # long segments
+        poses[9] = poses[9, :1]  # all-zero length
+        poses[10, : N // 2] = poses[10, :1]  # zero-length segments, then not
+    poses = poses.astype(np.float32)
+    max_cells = est._max_segment_cells(poses, n_poses)
+    if case == "edge_default_0.5":
+        max_cells = 8  # the long segments are cut at S = 2 samples
+    field = field_kernel.dense_circle_field(state, 0.45, 0.3)
+    has_single = bool(np.any(n_poses <= 1))
+    return (state, torch.as_tensor(poses, device=cuda), torch.as_tensor(n_poses, device=cuda),
+            max_cells, field, has_single)
+
+
+@pytest.mark.parametrize("case", sorted(CIRC_CASES))
+def test_circ_kernel_matches_plain(cuda, case):
+    """Kernel 4 against its plain version on the same CUDA tensors: one
+    launch a call, is_safe equal, traversability within 1e-6, two launches
+    bit-identical."""
+    state, poses, n_poses, max_cells, field, has_single = _circ_batch(case, cuda)
+    args = (state, poses, n_poses, 0.3, 0.15, max_cells, field, has_single)
+    before = circ_kernel.check_circular_paths.launches
+    got = footprint.check_circular_paths(*args)
+    assert circ_kernel.check_circular_paths.launches == before + 1
+    again = footprint.check_circular_paths(*args)
+    want = footprint.check_circular_paths_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
+    assert torch.equal(got[0], want[0])
+    assert float((got[1] - want[1]).abs().max()) <= 1e-6
+    assert torch.equal(got[0], again[0]) and _bits_equal(got[1], again[1])
+    assert bool(torch.isfinite(got[1]).all())
+    assert got[0].any() and not got[0].all()

@@ -12,11 +12,12 @@ update and circle field bit-identical to one card's whole-map kernels
 (kernel 1 with each tile's global origin, kernel 2 with its in-map plane),
 also for a map that does not divide the grid; circular paths in the
 per-sample mode, and with the raster split over the ranks, bit-identical to
-check_circular_paths on the same field, the per-path mode exact in verdicts
+check_circular_paths_plain on the same field (the tiled path is the plain
+version's arithmetic), the per-path mode exact in verdicts
 and within 3e-6; polygonal paths exact in verdicts, within 2e-6 in
 traversability (3e-6 per polygon) and rtol 1e-5 in area; the sharded tick's
 map state bit-identical to the whole map's update of the merged elevation
-and its verdicts to check_circular_paths; a merge off the map raises.
+and its verdicts to check_circular_paths_plain; a merge off the map raises.
 """
 
 import socket
@@ -79,7 +80,7 @@ def _state(trav, mask):
 
 def _local_paths(state, poses, n_poses, max_cells):
     field = field_kernel.dense_circle_field(state, RADIUS + OFFSET, RADIUS)
-    return [t.cpu().numpy() for t in footprint.check_circular_paths(
+    return [t.cpu().numpy() for t in footprint.check_circular_paths_plain(
         state, poses, n_poses, RADIUS, OFFSET, max_cells, field, False)]
 
 

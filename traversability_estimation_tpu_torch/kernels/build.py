@@ -34,6 +34,7 @@ SOURCES = {
     "fused_update": "fused_update.cu",
     "circle_field": "circle_field.cu",
     "poly_paths": "poly_paths.cu",
+    "circ_paths": "circ_paths.cu",
     # the roofline's peak-rate probes (utils/roofline.py), not a port kernel
     "peaks": "peaks.cu",
 }

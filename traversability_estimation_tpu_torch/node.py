@@ -26,9 +26,10 @@ for planner-in-the-loop runs).
 
 Threads and the device: the timer thread and every service thread queue
 their work on the device's one current stream, so device work stays ordered.
-On CUDA the constructor builds and loads the three kernels (the map
-update, the circle field and the grouped polygonal evaluator), so that no
-two threads meet at a kernel's first use and no request pays for a build.
+On CUDA the constructor builds and loads the four kernels (the map
+update, the circle field, the grouped polygonal evaluator and the circular
+path batch), so that no two threads meet at a kernel's first use and no
+request pays for a build.
 """
 
 from __future__ import annotations
@@ -48,7 +49,12 @@ from traversability_estimation_tpu_torch.models.estimator import (
     TraversabilityEstimator,
     TraversabilityResult,
 )
-from traversability_estimation_tpu_torch.ops import field_kernel, poly_kernel, update_kernel
+from traversability_estimation_tpu_torch.ops import (
+    circ_kernel,
+    field_kernel,
+    poly_kernel,
+    update_kernel,
+)
 from traversability_estimation_tpu_torch.utils.config import (
     EstimatorConfig,
     config_from_documents,
@@ -102,6 +108,7 @@ class TraversabilityNode:
             update_kernel.library()
             field_kernel.library()
             poly_kernel.library()
+            circ_kernel.library()
         self.source = source
         self.persistent_map_length = persistent_map_length
         self.recenter_on_robot = recenter_on_robot

@@ -11,7 +11,9 @@ is read from the dense ``traversable_mask`` plane.
 The dense circle field's plain version lives here; its CUDA kernel is in
 ``ops/field_kernel.py`` (``csrc/circle_field.cu``). So does the grouped
 polygonal evaluator's; its kernel is in ``ops/poly_kernel.py``
-(``csrc/poly_paths.cu``).
+(``csrc/poly_paths.cu``). And the circular path batch's
+(``check_circular_paths_plain``); its kernel is in ``ops/circ_kernel.py``
+(``csrc/circ_paths.cu``).
 """
 
 from __future__ import annotations
@@ -328,7 +330,31 @@ def check_circular_paths(
     this map epoch (built with the CUDA kernel on the card when omitted).
     `has_single_pose`: False skips the exact sub-cell spiral evaluation
     when no path has exactly one pose. Returns (is_safe (P,), trav (P,)).
+
+    CPU state: the plain version, ``check_circular_paths_plain``. CUDA
+    state: one launch of kernel 4 (``ops/circ_kernel.py``,
+    ``csrc/circ_paths.cu``), or an error: nothing falls back.
     """
+    args = (state, poses, n_poses, radius, offset, max_segment_cells, field, has_single_pose)
+    if state.device.type == "cpu":
+        return check_circular_paths_plain(*args)
+    from traversability_estimation_tpu_torch.ops import circ_kernel
+
+    return circ_kernel.check_circular_paths(*args)
+
+
+def check_circular_paths_plain(
+    state: QueryState,
+    poses,
+    n_poses,
+    radius: float,
+    offset: float = 0.15,
+    max_segment_cells: int = 64,
+    field: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    has_single_pose: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``check_circular_paths`` as torch ops on any device: kernel 4's plain
+    version, with the same arguments and results."""
     dev = state.device
     poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
     P, N, _ = poses.shape

@@ -397,8 +397,8 @@ def check_circular_paths_tiled(
     brings to every rank. Returns (is_safe (P,), trav (P,)) on every rank.
 
     Below ``_PATH_REDUCE_SAMPLES`` samples the sums are per sample (each has
-    one non-zero term, so the result is ``check_circular_paths``' bit for
-    bit); from there on per path (the verdict stays exact, the mean sums in
+    one non-zero term, so the result is ``check_circular_paths_plain``' bit
+    for bit); from there on per path (the verdict stays exact, the mean sums in
     another order). Off-map samples take the default verdict, counted once
     (by rank 0) in the per-path sums. Single-pose paths are scored at the
     pose's CELL CENTRE (the local evaluator runs the sub-cell spiral there).
