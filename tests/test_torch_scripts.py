@@ -250,6 +250,23 @@ def test_host_profile_cpu_run(tmp_path):
     assert cum == sorted(cum, reverse=True)
 
 
+def test_host_profile_circular_cell_cpu_run(tmp_path):
+    """host_profile's circular cell at a small size on the CPU: the batch's
+    functions by cumulative time, the estimator's circular batch among
+    them, no polygonal dispatch."""
+    out = tmp_path / "hp.json"
+    assert host_profile.main(["--cell", "circ_paths_336", "--device", "cpu", "--map-cells",
+                              "48", "--paths", "8", "--poses", "5", "--epochs", "2",
+                              "--warmup", "1", "--top", "200", "--json", str(out)]) == 0
+    row = json.loads(out.read_text())
+    assert row["cell"] == "circ_paths_336" and row["circ_batch_ms_p50"] > 0
+    assert row["dispatch"] is None and (row["paths"], row["poses"]) == (8, 5)
+    names = [r["function"] for r in row["functions"]]
+    assert any("check_circular_paths_batch" in n for n in names)
+    cum = [r["cum_ms"] for r in row["functions"]]
+    assert cum == sorted(cum, reverse=True)
+
+
 def test_ab_pairs_claim_rule():
     """ab_pairs' comparison: wins by the metric's direction, ties for
     neither side, a claim only with nine tenths of the pairs won and the

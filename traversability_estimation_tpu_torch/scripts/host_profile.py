@@ -1,20 +1,25 @@
-"""Host profile of the polygonal cell's path batch: which host functions the
-time of ``check_polygonal_paths_batch`` goes to.
+"""Host profile of a path batch of the benchmark: which host functions the
+time of ``check_polygonal_paths_batch`` (cell ``poly_paths_336``) or of
+``check_circular_paths_batch`` (cell ``circ_paths_336``) goes to.
 
-Per epoch of the benchmark's cell ``poly_paths_336`` (its map and traffic
-from ``BENCHMARK.json``, its inputs from ``bench_torch.inputs.epoch_inputs``
-of the seed): one ``update()``, which synchronises, then the path batch with
-its verdicts fetched, as the cell's ``poly_batch`` span times it. The batch
-runs once per epoch without a profiler and once under ``cProfile``. Prints
-the batch's median wall both ways, then per function of the port, and per
-builtin (torch and NumPy calls, ``.cpu()``), its cumulative and own ms per
-epoch. cProfile slows Python code more than the native calls under it: it
-says where the host time goes, the benchmark says how much there is.
+Per epoch of the cell (its map and traffic from ``BENCHMARK.json``, its
+inputs from ``bench_torch.inputs.epoch_inputs`` / ``circ_epoch_inputs`` of
+the seed): one ``update()``, which synchronises, then the path batch with
+its verdicts fetched, as the cell's ``poly_batch`` / ``circ_batch`` span
+times it. The batch runs once per epoch without a profiler and once under
+``cProfile``; in the circular cell each of the two follows its own
+``update()`` of the epoch's plane, so both build the epoch's circle field as
+the cell's batch does. Prints the batch's median wall both ways, then per
+function of the port, and per builtin (torch and NumPy calls, ``.cpu()``),
+its cumulative and own ms per epoch. cProfile slows Python code more than
+the native calls under it: it says where the host time goes, the benchmark
+says how much there is.
 
 Usage, from the repository root:
     python -m traversability_estimation_tpu_torch.scripts.host_profile
-        [--epochs 20] [--warmup 3] [--seed 0] [--top 25] [--json F]
-        [--device cuda|cpu] [--map-cells C --paths P --poses N]
+        [--cell poly_paths_336|circ_paths_336] [--epochs 20] [--warmup 3]
+        [--seed 0] [--top 25] [--json F] [--device cuda|cpu]
+        [--map-cells C --paths P --poses N]
 """
 
 from __future__ import annotations
@@ -31,13 +36,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-CELL = "poly_paths_336"
+CELLS = {"poly_paths_336": "poly_batch", "circ_paths_336": "circ_batch"}
 PACKAGE = "traversability_estimation_tpu_torch"
 ROOT = Path(__file__).resolve().parents[2]
 
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cell", default="poly_paths_336", choices=sorted(CELLS))
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -54,7 +60,7 @@ def _cell(args):
     """(traffic with the run's paths and poses, map side in cells,
     resolution) of the cell in ``BENCHMARK.json``."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    spec = next(w for w in bench["workloads"] if w["name"] == CELL)
+    spec = next(w for w in bench["workloads"] if w["name"] == args.cell)
     conf = bench["configurations"][spec["configuration"]]
     traffic = dict(spec["traffic"])
     traffic["paths"] = args.paths or traffic["paths"]
@@ -80,7 +86,7 @@ def _rows(stats: pstats.Stats, epochs: int, top: int):
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
-    from bench_torch.inputs import epoch_inputs
+    from bench_torch.inputs import circ_epoch_inputs, epoch_inputs
     from traversability_estimation_tpu_torch import (
         TraversabilityEstimator,
         config_from_documents,
@@ -90,13 +96,18 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     traffic, cells, res = _cell(args)
-    epochs = epoch_inputs(traffic, cells, res, args.seed, range(args.warmup + args.epochs))
+    circular = args.cell == "circ_paths_336"
+    make = circ_epoch_inputs if circular else epoch_inputs
+    epochs = make(traffic, cells, res, args.seed, range(args.warmup + args.epochs))
     est = TraversabilityEstimator(config_from_documents(**reference_documents()), device=dev)
     rect = np.asarray(est.config.footprint.footprint_polygon, np.float32)
 
     def batch(ep):
-        out = est.check_polygonal_paths_batch(ep.positions, ep.quaternions, ep.n_poses, rect,
-                                              traffic["conservative"])
+        if circular:
+            out = est.check_circular_paths_batch(ep.poses, ep.n_poses, traffic["radius_m"])
+        else:
+            out = est.check_polygonal_paths_batch(ep.positions, ep.quaternions, ep.n_poses,
+                                                  rect, traffic["conservative"])
         return [o.cpu() for o in out]
 
     prof = cProfile.Profile()
@@ -104,6 +115,8 @@ def main(argv=None) -> int:
     for i, ep in enumerate(epochs):
         est.update(ep.elevation)
         for walls, on in ((plain, False), (profiled, True)):
+            if circular and on:
+                est.update(ep.elevation)  # a new map epoch: the field is built again
             t0 = time.perf_counter()
             if on:
                 prof.enable()
@@ -118,18 +131,19 @@ def main(argv=None) -> int:
         card = torch.cuda.get_device_name(0)
     else:
         card = "cpu, not a device measurement"
+    span = CELLS[args.cell]
     out = {
-        "cell": CELL, "device": card, "epochs": args.epochs,
+        "cell": args.cell, "device": card, "epochs": args.epochs,
         "paths": traffic["paths"], "poses": traffic["poses"], "map_cells": cells,
-        "poly_batch_ms_p50": statistics.median(plain),
-        "poly_batch_ms_p50_profiled": statistics.median(profiled),
-        "dispatch": est.last_polygonal_dispatch,
+        f"{span}_ms_p50": statistics.median(plain),
+        f"{span}_ms_p50_profiled": statistics.median(profiled),
+        "dispatch": None if circular else est.last_polygonal_dispatch,
         "functions": _rows(pstats.Stats(prof), args.epochs, args.top),
     }
-    print(f"host profile of {CELL}'s path batch ({traffic['paths']} x {traffic['poses']}, "
-          f"{cells}^2), {args.epochs} epochs on {card}: wall p50 "
-          f"{out['poly_batch_ms_p50']:.3f} ms, {out['poly_batch_ms_p50_profiled']:.3f} ms "
-          f"profiled; {out['dispatch']}")
+    print(f"host profile of {args.cell}'s path batch ({traffic['paths']} x "
+          f"{traffic['poses']}, {cells}^2), {args.epochs} epochs on {card}: wall p50 "
+          f"{out[f'{span}_ms_p50']:.3f} ms, {out[f'{span}_ms_p50_profiled']:.3f} ms "
+          f"profiled" + ("" if circular else f"; {out['dispatch']}"))
     print(f"{'cum ms':>9} {'own ms':>9} {'calls':>7}  function (per epoch)")
     for r in out["functions"]:
         print(f"{r['cum_ms']:9.3f} {r['own_ms']:9.3f} {r['calls']:7.1f}  {r['function']}")
