@@ -95,17 +95,25 @@ Phases (any failure exits non-zero):
    the tick's shapes, and of the tick's copies.
    7g. kernel 4 (the circular path batch, ``csrc/circ_paths.cu``) against
    its plain version (``check_circular_paths_plain``) on the same CUDA
-   tensors: phase 4's 1024 x 50 batch on config 3's map, the last tick's
-   256 x 10 on the query crop it answered on, and three edge batches on
-   config 3's map (pose counts 0, 1, 2, N and N + 1, paths off the map and
-   on both borders, ~1 m segments cut at 8 cells, zero-length paths and
-   segments; a default traversability of 0.5 and of 0; a batch of single
-   poses). Bars: one launch a call, is_safe equal, traversability within
-   1e-6, a second launch bit-identical, verdicts of both kinds over the
-   batches (the tick's are all safe: config 4's circle meets no plateau). CUDA-event
-   times of kernel 4 and of the plain version on each batch, and at the
-   1024 x 50 batch the wrapper call's and the bound from the segments and
-   samples this batch reads;
+   tensors: phase 4's 1024 x 50 batch on config 3's map and the last
+   tick's 256 x 10 on the query crop it answered on, each with every
+   segment walked whole (as the estimator runs them on the card) and at
+   the estimator's cap; the 1024 x 50 batch with a quarter of its paths of
+   one pose (kernel 4's spiral walk); three edge batches on config 3's map
+   (pose counts 0, 1, 2, N and N + 1, paths off the map and on both
+   borders, ~1 m segments cut at 8 cells, zero-length paths and segments;
+   a default traversability of 0.5 and of 0; a batch of single poses);
+   and 64 paths of 800 poses, whose poses the kernel reads from global
+   memory. Bars: one launch a call and no ``check_circles`` on the card,
+   is_safe equal, traversability within 1e-6 (a single-pose path's bit for
+   bit), a second launch bit-identical, verdicts of both kinds over the
+   batches (the tick's are all safe: config 4's circle meets no plateau).
+   CUDA-event times of kernel 4 and of the plain version on each batch;
+   at the whole 1024 x 50 batch the wrapper call's (device tensors, and
+   host arrays through the staging copy), an empty kernel's at kernel 4's
+   geometry (the launch floor) and the bound from the work this batch
+   needs (``circ_kernel.work_counts``). Over the whole run
+   ``check_circles`` must not have run on the card outside the referees;
 8. the serving path, as a user starts it: a ``TraversabilityNode`` on the
    card under the reference-format configuration (its fusion expression runs
    inside kernel 1) behind a ``TraversabilityServer`` on 127.0.0.1, driven by
@@ -895,9 +903,6 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-# phase 9's sizes: (b) config 4's map and submaps, 10 ticks on a 5 m circle of
-# 256 paths; (c) config 5's 60 m tile at 0.03 m, its rollout batch and a
-# polygonal batch
 def circ_edge_batch(est, res, default, N, seed, max_cells=None):
     """Kernel 4's edge batch on a query state (map centre at the origin), its
     default traversability replaced by `default`: 64 random-walk paths of
@@ -906,8 +911,9 @@ def circ_edge_batch(est, res, default, N, seed, max_cells=None):
     (off the map), one of segments of ~1 m (33 cells), one of zero length
     and one whose first segments have zero length. Returns the arguments of
     ``check_circular_paths`` on the estimator's query state: radius 0.3,
-    offset 0.15, `max_cells` samples' cells (by default the estimator's
-    count for the batch), the state's field, single-pose paths present."""
+    offset 0.15, `max_cells` samples' cells (None: every segment whole, as
+    the estimator walks them on the card), the state's field, single-pose
+    paths present."""
     import torch
 
     from traversability_estimation_tpu_torch.ops import field_kernel, footprint
@@ -931,8 +937,6 @@ def circ_edge_batch(est, res, default, N, seed, max_cells=None):
     poses[9] = poses[9, :1]
     poses[10, : N // 2] = poses[10, :1]
     poses = poses.astype(np.float32)
-    if max_cells is None:
-        max_cells = est._max_segment_cells(poses, n_poses)
     dev = state.traversability.device
     field = field_kernel.dense_circle_field(st, 0.45, 0.3)
     return (st, torch.as_tensor(poses, device=dev), torch.as_tensor(n_poses, device=dev), 0.3,
@@ -943,25 +947,43 @@ def circ_kernel_phase(card_line, batches, device_ms, cuda_ms):
     """Phase 7g: kernel 4 (the circular path batch, ``csrc/circ_paths.cu``)
     against its plain version on the card (see the module docstring).
     `batches`: name -> the arguments of ``check_circular_paths``, on the
-    card; the first is the main path's 1024 x 50. `device_ms` / `cuda_ms`:
-    the kernel's device time and a call's time per call. Returns kernel 4's
-    numbers for the kernels line: the largest difference over the batches,
-    and at the first batch its time, the plain version's and its bound."""
+    card; the first is the main path's 1024 x 50 walked whole, the second
+    the tick's 256 x 10 walked whole. `device_ms` / `cuda_ms`: the kernel's
+    device time and a call's time per call. Returns kernel 4's numbers for
+    the kernels line: the largest difference over the batches; at the first
+    batch its time, the plain version's, its bound, the wrapper call's
+    (device tensors and host arrays) and the empty launch's; the second
+    batch's time."""
     import torch
 
     from traversability_estimation_tpu_torch.ops import circ_kernel, footprint
     from traversability_estimation_tpu_torch.utils import roofline
 
-    worst, n_safe_all, n_all = 0.0, 0, 0
+    circles = footprint.check_circles.card_calls
+
+    def kernel(args):
+        """One call of the dispatch: one launch, no check_circles."""
+        before = circ_kernel.check_circular_paths.launches
+        out = footprint.check_circular_paths(*args)
+        if circ_kernel.check_circular_paths.launches != before + 1:
+            fail(f"kernel 4: {circ_kernel.check_circular_paths.launches - before} launches "
+                 "for one call")
+        if footprint.check_circles.card_calls != circles:
+            fail("kernel 4: check_circles ran on the card")
+        return out
+
+    def plain(args):
+        """The referee: its own check_circles calls are not the path's."""
+        out = footprint.check_circular_paths_plain(*args)
+        footprint.check_circles.card_calls = circles
+        return out
+
+    worst, n_safe_all, n_all, times = 0.0, 0, 0, []
     for name, args in batches.items():
         P, N = args[1].shape[:2]
-        before = circ_kernel.check_circular_paths.launches
-        got = footprint.check_circular_paths(*args)
-        if circ_kernel.check_circular_paths.launches != before + 1:
-            fail(f"kernel 4 {name}: {circ_kernel.check_circular_paths.launches - before} "
-                 "launches for one call")
-        again = footprint.check_circular_paths(*args)
-        want = footprint.check_circular_paths_plain(*args)
+        got = kernel(args)
+        again = kernel(args)
+        want = plain(args)
         torch.cuda.synchronize()
         if got[0].shape != (P,) or got[1].shape != (P,) or not got[0].is_cuda \
                 or not bool(torch.isfinite(got[1]).all()):
@@ -972,19 +994,25 @@ def circ_kernel_phase(card_line, batches, device_ms, cuda_ms):
         err = float((got[1] - want[1]).abs().max())
         if err > 1e-6:
             fail(f"kernel 4 {name}: traversability differs from the plain version by {err:g}")
+        one = torch.ones(P, dtype=torch.bool, device=got[1].device) if N == 1 \
+            else (args[2] == 1) & bool(args[7])
+        n_one = int(one.sum())
+        if not torch.equal(got[1][one].view(torch.int32), want[1][one].view(torch.int32)):
+            fail(f"kernel 4 {name}: a single-pose path's traversability differs in its bits")
         if not (torch.equal(got[0], again[0])
                 and torch.equal(got[1].view(torch.int32), again[1].view(torch.int32))):
             fail(f"kernel 4 {name}: a second launch gave other bits")
         n_safe = int(got[0].sum())
         n_safe_all, n_all = n_safe_all + n_safe, n_all + P
         worst = max(worst, err)
-        ms = device_ms(lambda: footprint.check_circular_paths(*args), 100)
-        plain_ms = cuda_ms(lambda: footprint.check_circular_paths_plain(*args), 20)
-        log(f"kernel 4 {name} ({card_line}): {P} x {N}, max_segment_cells {args[5]}, "
-            f"{n_safe} safe; against the plain version is_safe equal, trav max diff {err:g}, "
-            f"a second launch bit-identical; {ms:.4f} ms a call on the device"
-            + (" (with check_circles' ops)" if args[7] else "")
-            + f", plain {plain_ms:.4f} ms")
+        ms = device_ms(lambda: kernel(args), 100)
+        plain_ms = cuda_ms(lambda: plain(args), 20)
+        times.append(ms)
+        cap = "whole segments" if args[5] is None else f"max_segment_cells {args[5]}"
+        log(f"kernel 4 {name} ({card_line}): {P} x {N}, {cap}, {n_safe} safe, {n_one} "
+            f"single-pose paths bit-identical; against the plain version is_safe equal, trav "
+            f"max diff {err:g}, a second launch bit-identical; {ms:.4f} ms a call on the "
+            f"device, plain {plain_ms:.4f} ms")
     # config 4's circle meets no plateau (the tick's paths are all safe);
     # the other batches hold both verdicts
     if not 0 < n_safe_all < n_all:
@@ -992,21 +1020,30 @@ def circ_kernel_phase(card_line, batches, device_ms, cuda_ms):
     name, args = next(iter(batches.items()))
     state, poses, n_poses, m, single = args[0], args[1], args[2], args[5], args[7]
     P, N = poses.shape[:2]
-    ms = device_ms(lambda: footprint.check_circular_paths(*args), 100)
-    call_ms = cuda_ms(lambda: footprint.check_circular_paths(*args), 100)
-    plain_ms = cuda_ms(lambda: footprint.check_circular_paths_plain(*args), 20)
-    segments, samples = circ_kernel.work_counts(state, poses, n_poses, m)
-    nbytes = circ_kernel.kernel_bytes(P, N, samples, single)
-    ops = circ_kernel.kernel_operations(P, segments, samples)
+    dev = poses.device
+    host_args = (state, poses.cpu().numpy(), n_poses.cpu().numpy()) + tuple(args[3:])
+    ms = device_ms(lambda: kernel(args), 100)
+    empty_ms = device_ms(lambda: circ_kernel.empty_launch(P, dev), 100)
+    call_ms = cuda_ms(lambda: kernel(args), 100)
+    host_call_ms = cuda_ms(lambda: kernel(host_args), 100)
+    plain_ms = cuda_ms(lambda: plain(args), 20)
+    work = circ_kernel.work_counts(state, poses, n_poses, args[3], args[4], m, single)
+    nbytes = circ_kernel.kernel_bytes(P, N, work)
+    ops = circ_kernel.kernel_operations(P, work)
     bound_ms, bound_by = roofline.bound(nbytes, ops)
-    log(f"kernel 4 at {name} ({card_line}): {ms:.4f} ms device time, wrapper call {call_ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms; {segments} segments, {samples} samples read, {nbytes} "
-        f"bytes, {ops} operations: bound {bound_ms:.6f} ms ({bound_by}), "
+    log(f"kernel 4 at {name} ({card_line}): {ms:.4f} ms device time, an empty kernel at its "
+        f"geometry {empty_ms:.4f} ms; wrapper call {call_ms:.4f} ms on device tensors, "
+        f"{host_call_ms:.4f} ms from host arrays (one staged upload); plain {plain_ms:.4f} ms; "
+        f"{work}, {nbytes} bytes, {ops} operations: bound {bound_ms:.6f} ms ({bound_by}), "
         f"{100 * bound_ms / ms:.2f}% of it")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "empty_ms": empty_ms, "call_ms": call_ms,
+            "host_call_ms": host_call_ms, "tick_ms": times[1]}
 
 
+# phase 9's sizes: (b) config 4's map and submaps, 10 ticks on a 5 m circle of
+# 256 paths; (c) config 5's 60 m tile at 0.03 m, its rollout batch and a
+# polygonal batch
 TILED_MAP_M = 50.0
 TILED_CIRCLE_M = 20.0
 TILED_TICKS = 10
@@ -1662,6 +1699,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    # kernel 4 evaluates a circular path's single pose itself: outside the
+    # referees, check_circles never runs on the card (checked at the end)
+    footprint.check_circles.card_calls = 0
 
     # ---- 1. card, build --------------------------------------------------
     card = subprocess.run(
@@ -1684,8 +1724,8 @@ def main() -> None:
     k2_occ = field_kernel.occupancy(k2_plan)
     k3_plan = poly_kernel.launch_plan(1024, 50, 4, 76, False)  # the 1024 x 50 random-yaw batch
     k3_occ = poly_kernel.occupancy(k3_plan)
-    k4_plan = circ_kernel.launch_plan(1024)  # the main path's 1024 paths
-    k4_occ = circ_kernel.occupancy()
+    k4_plan = circ_kernel.launch_plan(1024, 50)  # the main path's 1024 x 50
+    k4_occ = circ_kernel.occupancy(50)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def launch_line(grid, block, smem, occ, warps):
@@ -1707,8 +1747,8 @@ def main() -> None:
                                     k2_plan.warps),
         "poly_paths": launch_line(k3_plan.grid, k3_plan.block, k3_plan.smem_bytes, k3_occ,
                                   k3_plan.warps) + " (1024 paths)",
-        "circ_paths": launch_line((k4_plan.grid, 1), (k4_plan.block, 1), 0, k4_occ,
-                                  k4_plan.grid * circ_kernel.WARPS) + " (1024 paths)",
+        "circ_paths": launch_line((k4_plan.grid, 1), (k4_plan.block, 1), k4_plan.smem, k4_occ,
+                                  k4_plan.grid * circ_kernel.WARPS) + " (1024 paths x 50)",
     }
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
@@ -2339,8 +2379,8 @@ def main() -> None:
                            "circ_paths": N_TICKS}:
         fail(f"kernels 1, 2 and 4 must launch once per tick, kernel 3 never: {online_launches} "
              f"over {N_TICKS} ticks")
-    if est_on._max_cells_hwm <= 0:
-        fail("the fused tick did not run (no sample-count mark)")
+    if not any(k[0] == "tick_crop" for k in est_on._epoch.fields):
+        fail("the fused tick did not run (no query crop kept with the map epoch)")
     n_safe = [int(s.sum()) for s, _ in outs_on]
 
     # 7b. the first 6 ticks on the CPU
@@ -2394,7 +2434,8 @@ def main() -> None:
         torch.cuda.synchronize()
         short[kind] = counts()
         online_launches = {k: v + short[kind][k] for k, v in online_launches.items()}
-        fused_ran = est_k._pwindow_hwm if kind == "polygonal" else est_k._max_cells_hwm
+        fused_ran = est_k._pwindow_hwm if kind == "polygonal" else any(
+            k[0] == "tick_crop" for k in est_k._epoch.fields)
         if short[kind]["fused_update"] != n_short or not fused_ran:
             fail(f"online {kind}: kernel 1 launches {short[kind]} over {n_short} ticks, "
                  f"fused marks {fused_ran}")
@@ -2527,18 +2568,33 @@ def main() -> None:
     (tick_key,) = [k for k in tick_epoch.fields if k[0] == "tick_crop"]
     tick_state, tick_field = tick_epoch.fields[tick_key]
     qs3 = est.query_state
+    field3 = field_kernel.dense_circle_field(qs3, radius + offset, radius)
+    poses_d, n_d = torch.as_tensor(poses, device=dev), torch.as_tensor(n_poses, device=dev)
+    tick_d, tick_n_d = torch.as_tensor(tick_poses, device=dev), torch.as_tensor(tick_n, device=dev)
+    rng_g = np.random.default_rng(24)
+    n_mixed = rng_g.integers(2, N + 1, P).astype(np.int32)
+    n_mixed[rng_g.random(P) < 0.25] = 1
+    long_poses = make_paths(rng_g, 64, 800, H * res / 2 * 0.8, step=0.02)
     circ_batches = {
-        "main path 1024 x 50": (
-            qs3, torch.as_tensor(poses, device=dev), torch.as_tensor(n_poses, device=dev),
-            radius, offset, est._max_segment_cells(poses, n_poses),
-            field_kernel.dense_circle_field(qs3, radius + offset, radius), False),
+        "main path 1024 x 50": (qs3, poses_d, n_d, radius, offset, None, field3, False),
         "online tick 256 x 10": (
-            tick_state, torch.as_tensor(tick_poses, device=dev),
-            torch.as_tensor(tick_n, device=dev), radius, offset, est_on._max_cells_hwm,
-            tick_field, False),
+            tick_state, tick_d, tick_n_d, radius, offset, None, tick_field, False),
+        "main path with single-pose paths": (
+            qs3, poses_d, torch.as_tensor(n_mixed, device=dev), radius, offset, None, field3,
+            True),
+        "main path at the estimator's cap": (
+            qs3, poses_d, n_d, radius, offset, est._max_segment_cells(poses, n_poses), field3,
+            False),
+        "online tick at the estimator's cap": (
+            tick_state, tick_d, tick_n_d, radius, offset,
+            est_on._max_segment_cells(tick_poses, tick_n), tick_field, False),
         "edge, default 0.5, segments cut at 8 cells": circ_edge_batch(est, res, 0.5, 12, 21, 8),
         "edge, default 0": circ_edge_batch(est, res, 0.0, 12, 22),
         "edge, single poses": circ_edge_batch(est, res, 0.5, 1, 23),
+        "64 paths of 800 poses": (
+            qs3, torch.as_tensor(long_poses, device=dev),
+            torch.full((64,), 800, dtype=torch.int32, device=dev), radius, offset, None, field3,
+            False),
     }
     t0 = time.perf_counter()
     k4 = circ_kernel_phase(card_line, circ_batches, device_ms, cuda_ms)
@@ -2561,6 +2617,10 @@ def main() -> None:
         f"{driver_launches}")
 
     # ---- 11. report -------------------------------------------------------
+    if footprint.check_circles.card_calls:
+        fail(f"check_circles ran {footprint.check_circles.card_calls} times on the card's "
+             "circular paths (kernel 4 evaluates single poses itself)")
+    log("check_circles on the card's circular paths: 0 calls")
     b1e, _ = roofline.bound(update_kernel.kernel_bytes(ref_cfg.chain, ref_cfg.veto, H, W),
                             update_kernel.kernel_operations(ref_cfg.chain, ref_cfg.veto, H, W))
     b1, by1 = roofline.bound(update_kernel.kernel_bytes(cfg.chain, cfg.veto, H, W),
@@ -2613,7 +2673,13 @@ def main() -> None:
          + online_launches["circ_paths"] + serve_launches["circ_paths"]
          + tiled_launches["circ_paths"] + driver_launches["circ_paths"],
          "max_abs_err": k4["max_abs_err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
-         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None},
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None,
+         # the tick's 256 x 10, an empty kernel at kernel 4's geometry (its
+         # launch floor), the wrapper call from device tensors and from host
+         # arrays, check_circles' calls on the card's circular paths
+         "tick_ms": k4["tick_ms"], "empty_ms": k4["empty_ms"], "call_ms": k4["call_ms"],
+         "host_call_ms": k4["host_call_ms"],
+         "check_circles_on_card": footprint.check_circles.card_calls},
     ]
     log(json.dumps({"kernels": kernels}))
     log(card_line)

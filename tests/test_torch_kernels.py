@@ -21,14 +21,18 @@ The dispatch's window plan on the card gives the NumPy planners' integers
 on the polygonal cell's own inputs.
 
 The circular path batch is kernel 4 (``csrc/circ_paths.cu``): its cases hold
-``check_circular_paths`` on the card (one launch a call) to its plain
-version on the same CUDA tensors at the ``circ_paths_336`` cell's 1024 x 50
-batch, the online tick's 256 x 10 and edge batches (pose counts 0, 1, 2, N
-and more, poses off the map and on its border, segments longer than
+``check_circular_paths`` on the card (one launch a call, no
+``check_circles`` on the card) to its plain version on the same CUDA
+tensors at the ``circ_paths_336`` cell's 1024 x 50 batch and the online
+tick's 256 x 10, each at the estimator's cap and walked whole, the cell's
+batch with a quarter of its paths of one pose, paths of 800 poses (read from
+global memory, not staged) and edge batches (pose counts 0, 1, 2, N and
+more, poses off the map and on its border, segments longer than
 ``max_segment_cells``, a path of zero length, a default traversability of 0
 and of 0.5, a batch of single poses): is_safe equal, traversability within
-1e-6 (the plain version's own bar against JAX), two launches to the same
-bits.
+1e-6 (the plain version's own bar against JAX), a single-pose path's bit for
+bit, two launches to the same bits; poses and counts from host arrays (the
+staged upload) give the same bits as from device tensors.
 """
 
 import numpy as np
@@ -690,13 +694,18 @@ def test_measured_peaks_within_the_spec_sheet(cuda):
 
 
 # kernel 4's batches: name -> (map side in cells, paths, poses, default
-# traversability)
+# traversability); "_whole" walks every segment whole (the card's
+# estimator), the others at the estimator's cap (8 for "edge_default_0.5")
 CIRC_CASES = {
     "cell_1024x50": (336, 1024, 50, 0.5),
     "tick_256x10": (256, 256, 10, 0.5),
     "edge_default_0.5": (120, 64, 12, 0.5),
     "edge_default_0": (120, 64, 12, 0.0),
     "single_poses": (120, 64, 1, 0.5),
+    "cell_1024x50_whole": (336, 1024, 50, 0.5),
+    "tick_256x10_whole": (256, 256, 10, 0.5),
+    "cell_mixed_single_whole": (336, 1024, 50, 0.5),
+    "long_800_whole": (336, 64, 800, 0.0),
 }
 
 
@@ -715,10 +724,10 @@ def _circ_batch(case, cuda):
                                  default)
     rng = np.random.default_rng(side + N)
     centre = np.float32([0.2, -0.1])
-    if case == "cell_1024x50":
+    if case.startswith(("cell", "long")):
         ext = side * RES / 2 * 0.8
         starts = centre + rng.uniform(-ext, ext, (P, 2))
-        steps = rng.uniform(-0.06, 0.06, (P, N - 1, 2))
+        steps = rng.uniform(-0.06, 0.06, (P, N - 1, 2)) / (3 if N > 100 else 1)
     else:
         starts = centre + rng.uniform(-1.5, 1.5, (P, 2))
         steps = rng.uniform(-0.1, 0.1, (P, N - 1, 2))
@@ -734,10 +743,15 @@ def _circ_batch(case, cuda):
         poses[8] = poses[8, :1] + np.arange(N)[:, None] * np.float32([0.9, -0.4])  # long segments
         poses[9] = poses[9, :1]  # all-zero length
         poses[10, : N // 2] = poses[10, :1]  # zero-length segments, then not
+    if case == "cell_mixed_single_whole":
+        n_poses = rng.integers(2, N + 1, P).astype(np.int32)
+        n_poses[rng.random(P) < 0.25] = 1
     poses = poses.astype(np.float32)
     max_cells = est._max_segment_cells(poses, n_poses)
     if case == "edge_default_0.5":
         max_cells = 8  # the long segments are cut at S = 2 samples
+    if case.endswith("_whole"):
+        max_cells = None
     field = field_kernel.dense_circle_field(state, 0.45, 0.3)
     has_single = bool(np.any(n_poses <= 1))
     return (state, torch.as_tensor(poses, device=cuda), torch.as_tensor(n_poses, device=cuda),
@@ -747,20 +761,40 @@ def _circ_batch(case, cuda):
 @pytest.mark.parametrize("case", sorted(CIRC_CASES))
 def test_circ_kernel_matches_plain(cuda, case):
     """Kernel 4 against its plain version on the same CUDA tensors: one
-    launch a call, is_safe equal, traversability within 1e-6, two launches
-    bit-identical."""
+    launch a call and no check_circles on the card, is_safe equal,
+    traversability within 1e-6 and a single-pose path's bit for bit, two
+    launches bit-identical."""
     state, poses, n_poses, max_cells, field, has_single = _circ_batch(case, cuda)
     args = (state, poses, n_poses, 0.3, 0.15, max_cells, field, has_single)
     before = circ_kernel.check_circular_paths.launches
+    circles = footprint.check_circles.card_calls
     got = footprint.check_circular_paths(*args)
     assert circ_kernel.check_circular_paths.launches == before + 1
     again = footprint.check_circular_paths(*args)
+    assert footprint.check_circles.card_calls == circles
     want = footprint.check_circular_paths_plain(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
     assert torch.equal(got[0], want[0])
     assert float((got[1] - want[1]).abs().max()) <= 1e-6
+    one = (n_poses == 1) & has_single if poses.shape[1] > 1 else torch.ones_like(got[0])
+    assert _bits_equal(got[1][one], want[1][one])
     assert torch.equal(got[0], again[0]) and _bits_equal(got[1], again[1])
     assert bool(torch.isfinite(got[1]).all())
     assert got[0].any() and not got[0].all()
+
+
+def test_circ_kernel_host_inputs_match_device_inputs(cuda):
+    """Poses and counts from host arrays go up through the staging buffer in
+    one copy: the same bits as from device tensors, over batches of growing
+    size taken in turn (the buffer's two slots and its growth)."""
+    for case in ("tick_256x10_whole", "cell_mixed_single_whole", "tick_256x10_whole",
+                 "single_poses"):
+        state, poses, n_poses, max_cells, field, has_single = _circ_batch(case, cuda)
+        dev = footprint.check_circular_paths(state, poses, n_poses, 0.3, 0.15, max_cells,
+                                             field, has_single)
+        host = footprint.check_circular_paths(state, poses.cpu().numpy(), n_poses.cpu().numpy(),
+                                              0.3, 0.15, max_cells, field, has_single)
+        torch.cuda.synchronize()
+        assert torch.equal(dev[0], host[0]) and _bits_equal(dev[1], host[1])

@@ -703,9 +703,12 @@ class TraversabilityEstimator:
 
         n_poses_np = np.asarray(n_poses, np.int32)
         if footprint is None:
-            # monotone high-water sample count (the same reason as the window)
-            max_cells = max(self._max_segment_cells(poses, n_poses_np), self._max_cells_hwm)
-            self._max_cells_hwm = max_cells
+            max_cells = self._circular_cap(self._query_state.device, poses, n_poses_np)
+            if max_cells is not None:
+                # the plain version's walk: a monotone high-water sample
+                # count (the same reason as the window)
+                max_cells = max(max_cells, self._max_cells_hwm)
+                self._max_cells_hwm = max_cells
             has_single = bool(np.any(n_poses_np <= 1))
         else:
             max_cells, has_single, radius, offset = 4, False, 0.0, 0.0
@@ -731,7 +734,7 @@ class TraversabilityEstimator:
             qcrop_shape=(hc, wc),
             radius=float(radius),
             offset=float(offset),
-            max_cells=int(max_cells),
+            max_cells=max_cells,
             has_single=has_single,
             default_trav=float(self._traversability_default),
             do_roll=recenter_to is not None,
@@ -865,11 +868,11 @@ class TraversabilityEstimator:
             poses[b, : len(pp)] = pp
             poses[b, len(pp) :] = pp[-1]
             n_poses[b] = len(pp)
-        max_cells = self._max_segment_cells(poses, n_poses)
+        max_cells = self._circular_cap(epoch.state.device, poses, n_poses)
         field = self._circle_field(float(radius), float(offset), epoch)
         safe, trav = fp_ops.check_circular_paths(
             epoch.state, poses, n_poses, float(radius), float(offset),
-            int(max_cells), field, bool(np.any(n_poses <= 1)),
+            max_cells, field, bool(np.any(n_poses <= 1)),
         )
         safe = safe.cpu().numpy()
         trav = trav.cpu().numpy()
@@ -996,7 +999,7 @@ class TraversabilityEstimator:
         offset = self.config.footprint.circular_footprint_offset
         poses = np.asarray(poses, np.float32)
         n_poses = np.asarray(n_poses, np.int32)
-        max_cells = self._max_segment_cells(poses, n_poses)
+        max_cells = self._circular_cap(epoch.state.device, poses, n_poses)
         H, W = epoch.state.shape
         if crop is None:
             crop = H * W > 4_000_000
@@ -1006,7 +1009,7 @@ class TraversabilityEstimator:
             state = epoch.state
             field = self._circle_field(float(radius), float(offset), epoch)
         return fp_ops.check_circular_paths(
-            state, poses, n_poses, float(radius), float(offset), int(max_cells),
+            state, poses, n_poses, float(radius), float(offset), max_cells,
             field, bool(np.any(n_poses <= 1)),
         )
 
@@ -1045,6 +1048,20 @@ class TraversabilityEstimator:
         if key not in epoch.fields:
             epoch.fields[key] = dense_circle_field(epoch.state, radius + offset, radius)
         return epoch.fields[key]
+
+    def _circular_cap(self, device: torch.device, poses: np.ndarray, n_poses) -> Optional[int]:
+        """``max_segment_cells`` of a circular batch on `device`. The CPU's
+        plain version walks a static length, ``_max_segment_cells``. Kernel 4
+        walks each segment whole (None), so the card needs no pass over the
+        poses but a bounds check: a batch with a pose beyond 1e18 (NaN and
+        inf among them) takes ``_max_segment_cells`` as the CPU does, which
+        raises what it raises there (a NaN length's ValueError, an infinite
+        one's OverflowError); within it no length overflows."""
+        if device.type == "cpu":
+            return self._max_segment_cells(poses, n_poses)
+        if poses.size and not (-1e18 <= poses.min() and poses.max() <= 1e18):
+            self._max_segment_cells(poses, n_poses)
+        return None
 
     def _max_segment_cells(self, poses, n_poses) -> int:
         res = self.config.chain.resolution

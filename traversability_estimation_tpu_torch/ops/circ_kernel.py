@@ -6,14 +6,19 @@ goes through (the online tick, the service's circular paths,
 CPU state it runs the plain version, ``check_circular_paths_plain``, which
 is also the kernel's referee on the card; on a CUDA state it calls
 ``check_circular_paths`` here, one launch of kernel 4
-(``csrc/circ_paths.cu``) per batch. The two agree exactly in verdicts;
-traversability sums run in another order (float32 rounding).
+(``csrc/circ_paths.cu``) per batch. The two agree exactly in verdicts and,
+for a path of one pose, in traversability; a longer path's sums run in
+another order (float32 rounding).
 
 Kernel 4 is not the port of a TPU kernel: the JAX package computes the
 batch as XLA-fused ``jnp`` (``traversability_estimation_tpu/ops/
-footprint.py:378``). What stays in torch around it: the pose upload and,
-when the batch has single-pose paths, ``check_circles`` at their pose (the
-kernel reads its verdicts); the circle field, when the caller gives none, is
+footprint.py:378``). A call does no torch work but its outputs' allocation:
+the poses and pose counts the caller holds on the host go up in one
+``non_blocking`` copy from a pinned staging buffer (``device_inputs``); a
+segment takes its own samples, so the caller needs no sample cap
+(``max_segment_cells=None``); a path of one pose is ``check_circles``'
+spiral inside the kernel, from a table cached on the device
+(``device_spiral_table``). The circle field, when the caller gives none, is
 kernel 2's. The launch geometry (``launch_plan``, a warp per path) and the
 integer sample formula the kernel uses (``sample_cells``) are here, on the
 host, so the CPU tests reach them.
@@ -23,10 +28,15 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Tuple
+import functools
+import math
+import threading
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from traversability_estimation_tpu_torch.grid.geometry import spiral_order
 from traversability_estimation_tpu_torch.kernels import build
 from traversability_estimation_tpu_torch.ops import footprint
 from traversability_estimation_tpu_torch.ops.filters import f32, rcp
@@ -34,26 +44,37 @@ from traversability_estimation_tpu_torch.ops.footprint import QueryState
 
 WARPS = 4  # paths a block takes, a warp each (csrc/circ_paths.cu checks the plan)
 THREADS = 32 * WARPS
+# the most poses a path may have for a block's poses and their cells (16
+# bytes a pose, 4 paths: 32 KB) to be staged in shared memory
+STAGE_MAX_POSES = 512
+UNCAPPED = 2**31 - 1  # the sample cap S that never binds
 
 
 @dataclasses.dataclass(frozen=True)
 class CircPlan:
-    """One launch of kernel 4: the grid (a warp per path) and the block."""
+    """One launch of kernel 4: the grid (a warp per path), the block and the
+    dynamic shared memory (a block's poses and their cells, 0 when they are
+    read from global memory)."""
 
     grid: int
     block: int
+    smem: int
 
 
-def launch_plan(P: int) -> CircPlan:
-    """Kernel 4's launch for a batch of `P` paths."""
-    if P < 1:
-        raise ValueError(f"check_circular_paths: {P} paths; the kernel takes at least 1")
-    return CircPlan(grid=-(-P // WARPS), block=THREADS)
+def launch_plan(P: int, N: int) -> CircPlan:
+    """Kernel 4's launch for a batch of `P` paths of `N` poses."""
+    if P < 1 or N < 1:
+        raise ValueError(f"check_circular_paths: {P} paths of {N} poses; the kernel takes "
+                         "at least 1 of each")
+    return CircPlan(grid=-(-P // WARPS), block=THREADS,
+                    smem=WARPS * N * 16 if N <= STAGE_MAX_POSES else 0)
 
 
-def samples_per_segment(max_segment_cells: int) -> int:
+def samples_per_segment(max_segment_cells: Optional[int]) -> int:
     """S: the stride-4 samples a segment takes at most (nSkip = 3 over
-    `max_segment_cells` cells)."""
+    `max_segment_cells` cells); ``UNCAPPED`` for None."""
+    if max_segment_cells is None:
+        return UNCAPPED
     return (int(max_segment_cells) + 3) // 4
 
 
@@ -80,6 +101,130 @@ def sample_cells(first: torch.Tensor, last: torch.Tensor,
     return torch.stack([ci, cj], -1).to(torch.int32), k <= denom
 
 
+@functools.lru_cache(maxsize=None)
+def spiral_table(radius_max: float, resolution: float) -> np.ndarray:
+    """``check_circles``' spiral as kernel 4 reads it: (K, 2) int32 in
+    grid_map's spiral order, column 0 the offset (di << 16 | dj & 0xffff),
+    column 1 the bits of the offset's float32 radius (float64 norm times
+    the resolution, rounded once, as ``check_circles`` rounds it), negative
+    on the outer two rings (the Euclidean re-check). Cached, read-only."""
+    offs, rings = spiral_order(radius_max, resolution)
+    if len(offs) and int(np.abs(offs).max()) >= 2**15:
+        raise ValueError(f"spiral of radius {radius_max} at {resolution}: offsets beyond int16")
+    n_rings = int(math.ceil(radius_max / resolution - 1e-12))
+    outer = rings >= max(n_rings - 1, 0)
+    radii = (np.linalg.norm(offs.astype(np.float64), axis=1) * resolution).astype(np.float32)
+    table = np.empty((len(offs), 2), np.int32)
+    table[:, 0] = (offs[:, 0].astype(np.int32) << 16) | (offs[:, 1].astype(np.int32) & 0xFFFF)
+    table[:, 1] = np.where(outer, -radii, radii).view(np.int32)
+    table.flags.writeable = False
+    return table
+
+
+_tables: Dict[tuple, torch.Tensor] = {}
+
+
+def device_spiral_table(radius_max: float, resolution: float,
+                        device: torch.device) -> torch.Tensor:
+    """``spiral_table`` on `device`, uploaded once per (radius, resolution,
+    device)."""
+    key = (float(radius_max), float(resolution), str(device))
+    table = _tables.get(key)
+    if table is None:
+        table = torch.as_tensor(np.array(spiral_table(radius_max, resolution)), device=device)
+        _tables[key] = table
+    return table
+
+
+class _Staging:
+    """Pinned host buffers of one device for the inputs a batch brings from
+    the host, in two slots taken in turn, each grown as needed and guarded
+    by the event of its last copy: a slot is written again only once that
+    copy has left it. A fresh pin per call would cost more than the
+    pageable copy it replaces."""
+
+    def __init__(self) -> None:
+        self.lock = threading.Lock()
+        self.host: List[Optional[torch.Tensor]] = [None, None]
+        self.events: List[Optional[torch.cuda.Event]] = [None, None]
+        self.turn = 0
+
+    def upload(self, parts, dev: torch.device) -> List[torch.Tensor]:
+        """`parts`: (array, numpy dtype, shape) of each input; each goes at a
+        16-byte aligned offset of one buffer, converted to its dtype as it
+        is written, and the buffer goes up in one ``non_blocking`` copy on
+        the current stream. Returns the inputs as views of the device
+        buffer."""
+        offsets, total = [], 0
+        for _, dtype, shape in parts:
+            offsets.append(total)
+            total += -(-int(np.prod(shape)) * np.dtype(dtype).itemsize // 16) * 16
+        with self.lock:
+            i, self.turn = self.turn, self.turn ^ 1
+            host, event = self.host[i], self.events[i]
+            if host is None or host.numel() < total:
+                size = max(total, 2 * (0 if host is None else host.numel()), 1 << 16)
+                host = self.host[i] = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            elif event is not None:
+                event.synchronize()
+            buf = host.numpy()
+            for (a, dtype, shape), o in zip(parts, offsets):
+                n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+                np.copyto(buf[o:o + n].view(dtype).reshape(shape), a, casting="unsafe")
+            dev_buf = torch.empty(total, dtype=torch.uint8, device=dev)
+            dev_buf.copy_(host[:total], non_blocking=True)
+            if event is None:
+                event = self.events[i] = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+        out = []
+        for (_, dtype, shape), o in zip(parts, offsets):
+            n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+            out.append(dev_buf[o:o + n].view(_TORCH_DTYPES[dtype]).view(shape))
+        return out
+
+
+_TORCH_DTYPES = {np.float32: torch.float32, np.int32: torch.int32}
+_staging: Dict[str, _Staging] = {}
+_staging_lock = threading.Lock()
+
+
+def device_inputs(poses, n_poses, dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(poses (P, N, 2) float32, 16-byte aligned; n_poses (P,) int32) on
+    `dev`. Tensors already there are used as they are (copied only to align
+    or convert); what lies on the host goes up in one copy from the
+    device's staging buffer."""
+    on_dev = [isinstance(t, torch.Tensor) and t.device.type == "cuda" for t in (poses, n_poses)]
+    host = [None if d else (t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t))
+            for t, d in zip((poses, n_poses), on_dev)]
+    shape = tuple(poses.shape) if on_dev[0] else host[0].shape
+    if len(shape) != 3 or shape[1] < 1 or shape[2] != 2:
+        raise ValueError(f"check_circular_paths: poses {shape}, expected (P, N, 2)")
+    n_shape = tuple(n_poses.shape) if on_dev[1] else host[1].shape
+    if n_shape != shape[:1]:
+        raise ValueError(f"check_circular_paths: n_poses {n_shape} for {shape[0]} paths")
+    parts = []
+    if not on_dev[0]:
+        parts.append((host[0], np.float32, shape))
+    if not on_dev[1]:
+        parts.append((host[1], np.int32, n_shape))
+    up = []
+    if parts and shape[0] > 0:
+        with _staging_lock:
+            st = _staging.setdefault(str(dev), _Staging())
+        up = st.upload(parts, dev)
+    elif parts:
+        up = [torch.empty(s, dtype=_TORCH_DTYPES[d], device=dev) for _, d, s in parts]
+    up = iter(up)
+    if on_dev[0]:
+        p = poses.to(device=dev, dtype=torch.float32).contiguous()
+        if p.data_ptr() % 16:
+            p = p.clone()
+    else:
+        p = next(up)
+    n = n_poses.to(device=dev, dtype=torch.int32).contiguous() if on_dev[1] else next(up)
+    return p, n
+
+
 _lib = None
 
 
@@ -89,16 +234,25 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("circ_paths")
         lib.te_circ_paths.argtypes = [
-            *([ctypes.c_void_p] * 7), *([ctypes.c_int] * 5), *([ctypes.c_float] * 3),
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            *([ctypes.c_void_p] * 8), *([ctypes.c_int] * 9), *([ctypes.c_float] * 7),
+            *([ctypes.c_int] * 4), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.te_circ_paths.restype = ctypes.c_int
-        lib.te_circ_paths_occupancy.argtypes = []
+        lib.te_circ_paths_occupancy.argtypes = [ctypes.c_int]
         lib.te_circ_paths_occupancy.restype = ctypes.c_int
+        lib.te_circ_paths_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.te_circ_paths_empty.restype = ctypes.c_int
         lib.te_circ_paths_error_string.argtypes = [ctypes.c_int]
         lib.te_circ_paths_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _row_major(plane: torch.Tensor) -> torch.Tensor:
+    """`plane` if its rows are dense (a crop's view keeps its row stride),
+    else a dense copy."""
+    return plane if plane.stride(1) == 1 and plane.stride(0) >= plane.shape[1] \
+        else plane.contiguous()
 
 
 def check_circular_paths(
@@ -107,38 +261,30 @@ def check_circular_paths(
     n_poses,
     radius: float,
     offset: float = 0.15,
-    max_segment_cells: int = 64,
+    max_segment_cells: Optional[int] = 64,
     field: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     has_single_pose: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``footprint.check_circular_paths`` on a CUDA state, with its
     arguments and results: one launch of kernel 4 (or an error: nothing
-    falls back)."""
+    falls back). `max_segment_cells` None: every segment walked whole."""
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"check_circular_paths kernel: unsupported device {dev}")
-    poses = torch.as_tensor(poses, dtype=torch.float32, device=dev).contiguous()
-    if poses.dim() != 3 or poses.shape[1] < 1 or poses.shape[2] != 2:
-        raise ValueError(f"check_circular_paths: poses {tuple(poses.shape)}, expected (P, N, 2)")
+    poses, n_poses = device_inputs(poses, n_poses, dev)
     P, N, _ = poses.shape
-    n_poses = torch.as_tensor(n_poses, dtype=torch.int32, device=dev).contiguous()
-    if tuple(n_poses.shape) != (P,):
-        raise ValueError(f"check_circular_paths: n_poses {tuple(n_poses.shape)} for {P} paths")
     safe = torch.empty(P, dtype=torch.bool, device=dev)
     trav = torch.empty(P, dtype=torch.float32, device=dev)
     if P == 0:
         return safe, trav
-    ok1 = trav1 = None
-    if has_single_pose or N == 1:
-        ok1, trav1 = (t.contiguous() for t in footprint.check_circles(
-            state, poses[:, 0, :], radius + offset, radius))
     H, W = state.shape
+    rmax = radius + offset
     field_ok = field_trav = None
     if N > 1:
         if field is None:
             from traversability_estimation_tpu_torch.ops.field_kernel import dense_circle_field
 
-            field = dense_circle_field(state, radius + offset, radius)
+            field = dense_circle_field(state, rmax, radius)
         field_ok, field_trav = field
         if tuple(field_ok.shape) != (H, W) or tuple(field_trav.shape) != (H, W) \
                 or field_ok.device != dev or field_trav.device != dev:
@@ -147,19 +293,26 @@ def check_circular_paths(
                 f"the state {(H, W)} on {dev}")
         field_ok = field_ok.to(torch.bool).contiguous().view(torch.uint8)
         field_trav = field_trav.to(torch.float32).contiguous()
+    tv_plane = _row_major(state.traversability.to(torch.float32))
+    mask_plane = _row_major(state.traversable_mask.to(torch.bool)).view(torch.uint8)
+    table = device_spiral_table(rmax, state.resolution, dev)
     position = torch.as_tensor(state.position, dtype=torch.float32, device=dev).contiguous()
     default = float(state.default_traversability)
     fill = default if default != 0.0 else -1.0 - default
-    plan = launch_plan(P)
+    with np.errstate(divide="ignore"):
+        span_rcp = rcp(rmax - radius)
+    plan = launch_plan(P, N)
     lib = library()
     with torch.cuda.device(dev):
         rc = lib.te_circ_paths(
             poses.data_ptr(), n_poses.data_ptr(), position.data_ptr(),
             *(None if t is None else t.data_ptr() for t in (field_ok, field_trav)),
-            None if ok1 is None else ok1.view(torch.uint8).data_ptr(),
-            None if trav1 is None else trav1.data_ptr(),
-            P, N, H, W, samples_per_segment(max_segment_cells), f32(state.resolution),
-            rcp(state.resolution), f32(fill), plan.grid, plan.block,
+            tv_plane.data_ptr(), mask_plane.data_ptr(), table.data_ptr(),
+            P, N, H, W, samples_per_segment(max_segment_cells), table.shape[0],
+            tv_plane.stride(0), mask_plane.stride(0), int(bool(has_single_pose)),
+            f32(state.resolution), rcp(state.resolution), f32(fill), f32(default),
+            f32(rmax * rmax), f32(radius), span_rcp, int(radius == 0.0),
+            plan.grid, plan.block, plan.smem,
             safe.view(torch.uint8).data_ptr(), trav.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -173,42 +326,101 @@ def check_circular_paths(
 check_circular_paths.launches = 0
 
 
-def occupancy() -> int:
-    """Resident blocks per SM of kernel 4."""
-    return library().te_circ_paths_occupancy()
+def occupancy(N: int = 50) -> int:
+    """Resident blocks per SM of kernel 4 on paths of `N` poses."""
+    return library().te_circ_paths_occupancy(launch_plan(1, N).smem)
 
 
-def work_counts(state: QueryState, poses, n_poses, max_segment_cells: int) -> Tuple[int, int]:
-    """(valid segments, samples read) of a batch: what kernel 4 does on
-    these inputs (a segment past its path's pose count takes no sample, a
-    short one fewer than S). Counted with the plain version's cell indices
-    and ``sample_cells``."""
+def empty_launch(P: int, device: torch.device) -> None:
+    """Launch an empty kernel at kernel 4's grid and block for `P` paths on
+    `device`'s current stream: the floor of a launch of kernel 4, to time
+    beside it. Not counted as a launch of kernel 4."""
+    plan = launch_plan(P, 1)
+    lib = library()
+    with torch.cuda.device(device):
+        rc = lib.te_circ_paths_empty(plan.grid, plan.block,
+                                     torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty launch: {lib.te_circ_paths_error_string(rc).decode()}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CircWork:
+    """What kernel 4 does on a batch: valid segments and the samples they
+    read; single-pose paths evaluated, the spiral positions they visit (to
+    the first failure, or all), of which on the outer two rings and of which
+    read (on the map, within the circle), and the table entries needed."""
+
+    segments: int
+    samples: int
+    single_paths: int
+    spiral_cells: int
+    outer_cells: int
+    spiral_reads: int
+    table_entries: int
+
+
+def work_counts(state: QueryState, poses, n_poses, radius: float, offset: float = 0.15,
+                max_segment_cells: Optional[int] = None,
+                has_single_pose: bool = True) -> CircWork:
+    """``CircWork`` of a batch, counted with the plain version's cell
+    indices and ``check_circles``' values."""
     dev = state.device
     poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
     n_poses = torch.as_tensor(n_poses, dtype=torch.int32, device=dev)
-    N = poses.shape[1]
-    if N < 2:
-        return 0, 0
-    seg_valid = torch.arange(1, N, device=dev)[None, :] < n_poses[:, None]
-    _, valid = sample_cells(footprint._index_of(state, poses[:, 1:]),
-                            footprint._index_of(state, poses[:, :-1]), max_segment_cells)
-    return int(seg_valid.sum()), int((valid & seg_valid[..., None]).sum())
+    P, N = poses.shape[:2]
+    segments = samples = 0
+    if N > 1:
+        seg_valid = torch.arange(1, N, device=dev)[None, :] < n_poses[:, None]
+        d = (footprint._index_of(state, poses[:, 1:])
+             - footprint._index_of(state, poses[:, :-1])).abs().amax(-1)
+        per = torch.clamp_max(d // 4 + 1, samples_per_segment(max_segment_cells))
+        segments = int(seg_valid.sum())
+        samples = int(torch.where(seg_valid, per, 0).sum())
+    if N == 1:
+        single = torch.ones_like(n_poses, dtype=torch.bool)
+    else:
+        single = (n_poses == 1) & bool(has_single_pose)
+    centers = poses[:, 0][single]
+    rmax = radius + offset
+    cells = outer = reads = entries = 0
+    if len(centers):
+        active, ok, _, inside = footprint._spiral_values(state, centers, rmax)
+        K = active.shape[1]
+        fail = active & ~ok
+        c = torch.where(fail.any(-1), fail.to(torch.uint8).argmax(-1) + 1, K)
+        c = torch.where(inside, c, 0)
+        upto = torch.arange(K, device=dev)[None, :] < c[:, None]
+        is_outer = torch.as_tensor(spiral_table(rmax, state.resolution)[:, 1] < 0, device=dev)
+        cells, entries = int(c.sum()), int(c.max())
+        outer = int((upto & is_outer[None, :]).sum())
+        reads = int((upto & active).sum())
+    return CircWork(segments, samples, int(single.sum()), cells, outer, reads, entries)
 
 
-def kernel_bytes(P: int, N: int, samples: int, single_pose: bool) -> int:
+def kernel_bytes(P: int, N: int, work: CircWork) -> int:
     """Bytes kernel 4 must move: the poses, pose counts and map centre read
-    once, the field's ok byte and trav float once per sample read, the
-    single-pose verdicts (bool, f32) when given, the verdicts (bool, f32)
-    written once."""
-    return P * N * 8 + P * 4 + 8 + samples * 5 + (P * 5 if single_pose else 0) + P * 5
+    once, the field's ok byte and trav float once per sample read, a single
+    pose's map cells (trav float, mask byte) once per spiral cell read and
+    the spiral table's entries it needs (8 bytes each), the verdicts (bool,
+    f32) written once."""
+    return (P * N * 8 + P * 4 + 8 + work.samples * 5 + work.spiral_reads * 5
+            + work.table_entries * 8 + P * 5)
 
 
-def kernel_operations(P: int, segments: int, samples: int) -> int:
+def kernel_operations(P: int, work: CircWork) -> int:
     """Float32 operations of kernel 4 on this batch: per valid segment the
     four cell indices (a subtract and a multiply each), its length (two
     subtracts, two multiplies, an add, a root), its mean (a divide) and the
     lane's four sums (with one multiply): 19; per sample read its compare,
     the packed round trip (two subtracts) and the add: 4; per path the warp
-    tree's 4 x 5 adds and the final compare and divide: 22. Integer index
-    arithmetic, selects and boolean logic are not counted."""
-    return 19 * segments + 4 * samples + 22 * P
+    tree's 4 x 5 adds and the final compare and divide: 22. A single-pose
+    path: per spiral position visited the packed value, its compare and its
+    add: 3, and on the outer two rings the cell centre (two adds, two FMAs),
+    the distance (two subtracts, a multiply, an FMA) and its compare: 9
+    more; per path the inside test (two subtracts, four compares) and the
+    verdict (a compare, a divide, the factor's subtract, FMA and two
+    multiplies): 12. Integer index arithmetic, selects and boolean logic are
+    not counted."""
+    return (19 * work.segments + 4 * work.samples + 22 * P + 3 * work.spiral_cells
+            + 9 * work.outer_cells + 12 * work.single_paths)

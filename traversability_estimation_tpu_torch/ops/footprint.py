@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -133,30 +134,16 @@ def _inflation_factor(r_fail: torch.Tensor, radius_max: float, radius_min: float
     return fma_f32(r_fail - f32(radius_min), rcp(radius_max - radius_min), 1.0) * 0.5
 
 
-def check_circles(
-    state: QueryState,
-    centers: torch.Tensor,
-    radius_max: float,
-    radius_min: float,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched isTraversable(center, radiusMax, ..., radiusMin) at arbitrary
-    (sub-cell) centers (..., 2). Returns (ok (...,) bool, trav (...,) f32)."""
+def _spiral_values(state: QueryState, centers: torch.Tensor, radius_max: float):
+    """``check_circles``' cells at (B, 2) centers, in spiral order: (active
+    (B, K) bool: on the map and, on the outer two rings, within the circle;
+    ok (B, K) bool: the cell passes; tv (B, K) f32: its traversability;
+    inside (B,) bool: the center lies on the map)."""
     dev = state.device
     offs_np, rings_np = spiral_order(radius_max, state.resolution)
     n_rings = int(math.ceil(radius_max / state.resolution - 1e-12))
     offs = torch.as_tensor(offs_np, dtype=torch.int32, device=dev)
     rings = torch.as_tensor(rings_np, dtype=torch.int32, device=dev)
-    radii = torch.as_tensor(
-        (np.linalg.norm(offs_np.astype(np.float64), axis=1) * state.resolution).astype(
-            np.float32
-        ),
-        dtype=torch.float32,
-        device=dev,
-    )
-
-    centers_in = torch.as_tensor(centers, dtype=torch.float32, device=dev)
-    batch_shape = centers_in.shape[:-1]
-    centers = centers_in.reshape(-1, 2)
     idx = _index_of(state, centers)
     cells = idx[:, None, :] + offs  # (B, K, 2)
 
@@ -181,8 +168,36 @@ def check_circles(
     d2 = fma_f32(diff[..., 1], diff[..., 1], diff[..., 0] * diff[..., 0])
     outer = rings >= max(n_rings - 1, 0)
     within = torch.where(outer, d2 <= radius_max * radius_max, True)
+    return inmap & within, ok_vals, tv, _is_inside(state, centers)
 
-    active = inmap & within
+
+def check_circles(
+    state: QueryState,
+    centers: torch.Tensor,
+    radius_max: float,
+    radius_min: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched isTraversable(center, radiusMax, ..., radiusMin) at arbitrary
+    (sub-cell) centers (..., 2). Returns (ok (...,) bool, trav (...,) f32).
+    ``check_circles.card_calls`` counts the calls on a state off the CPU
+    (kernel 4 evaluates a circular path's single pose itself)."""
+    dev = state.device
+    if dev.type != "cpu":
+        with _count_lock:
+            check_circles.card_calls += 1
+    offs_np, _ = spiral_order(radius_max, state.resolution)
+    radii = torch.as_tensor(
+        (np.linalg.norm(offs_np.astype(np.float64), axis=1) * state.resolution).astype(
+            np.float32
+        ),
+        dtype=torch.float32,
+        device=dev,
+    )
+
+    centers_in = torch.as_tensor(centers, dtype=torch.float32, device=dev)
+    batch_shape = centers_in.shape[:-1]
+    centers = centers_in.reshape(-1, 2)
+    active, ok_vals, tv, inside = _spiral_values(state, centers, radius_max)
     fail = active & ~ok_vals
     passing = active & ok_vals
     contrib = torch.where(passing, tv, 0.0)
@@ -218,10 +233,13 @@ def check_circles(
         )
 
     # centers outside the map: the default verdict
-    inside = _is_inside(state, centers)
     ok = torch.where(inside, ok, default != 0.0)
     trav = torch.where(inside, trav, default)
     return ok.reshape(batch_shape), trav.reshape(batch_shape)
+
+
+check_circles.card_calls = 0
+_count_lock = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -319,17 +337,19 @@ def check_circular_paths(
     n_poses,
     radius: float,
     offset: float = 0.15,
-    max_segment_cells: int = 64,
+    max_segment_cells: Optional[int] = 64,
     field: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     has_single_pose: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched checkCircularFootprintPath.
 
     poses: (P, N, 2) map-frame positions, the first n_poses[p] valid per
-    path. `field`: the dense circle field ``(radius + offset, radius)`` of
-    this map epoch (built with the CUDA kernel on the card when omitted).
-    `has_single_pose`: False skips the exact sub-cell spiral evaluation
-    when no path has exactly one pose. Returns (is_safe (P,), trav (P,)).
+    path. `max_segment_cells`: the cells of a segment's walk (its stride-4
+    samples), or None for every segment's own, whole. `field`: the dense
+    circle field ``(radius + offset, radius)`` of this map epoch (built with
+    the CUDA kernel on the card when omitted). `has_single_pose`: False
+    skips the exact sub-cell spiral evaluation when no path has exactly one
+    pose. Returns (is_safe (P,), trav (P,)).
 
     CPU state: the plain version, ``check_circular_paths_plain``. CUDA
     state: one launch of kernel 4 (``ops/circ_kernel.py``,
@@ -349,12 +369,13 @@ def check_circular_paths_plain(
     n_poses,
     radius: float,
     offset: float = 0.15,
-    max_segment_cells: int = 64,
+    max_segment_cells: Optional[int] = 64,
     field: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     has_single_pose: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``check_circular_paths`` as torch ops on any device: kernel 4's plain
-    version, with the same arguments and results."""
+    version, with the same arguments and results (a `max_segment_cells` of
+    None is ``whole_segment_cells``, one fetch)."""
     dev = state.device
     poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
     P, N, _ = poses.shape
@@ -383,6 +404,8 @@ def check_circular_paths_plain(
     starts = poses[:, :-1, :]
     ends = poses[:, 1:, :]
     seg_valid = torch.arange(1, N, device=dev)[None, :] < n_poses[:, None]
+    if max_segment_cells is None:
+        max_segment_cells = whole_segment_cells(state, poses, n_poses)
 
     # the reference iterates from END to START
     cells, cell_valid, _ = line_cells_batch(
@@ -407,16 +430,36 @@ def check_circular_paths_plain(
     )
 
 
+def whole_segment_cells(state: QueryState, poses, n_poses) -> int:
+    """The fewest cells a static walk needs to take every valid segment of a
+    batch whole: its longest line's ``max(|di|, |dj|) + 1`` (at least 1)."""
+    poses = torch.as_tensor(poses, dtype=torch.float32, device=state.device)
+    n_poses = torch.as_tensor(n_poses, dtype=torch.int32, device=state.device)
+    N = poses.shape[1]
+    if N < 2:
+        return 1
+    seg_valid = torch.arange(1, N, device=state.device)[None, :] < n_poses[:, None]
+    d = (_index_of(state, poses[:, 1:]) - _index_of(state, poses[:, :-1])).abs().amax(-1)
+    return int(torch.where(seg_valid, d, 0).max()) + 1 if d.numel() else 1
+
+
 def aggregate_sampled_segments(
     ok_s, trav_s, s_valid, seg_valid, starts, ends, n_poses, ok1, trav1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segment -> path aggregation: per-segment all-samples-ok and sample
     mean, then the length-weighted path mean (with a correct running length
-    where the reference reads an uninitialised one)."""
+    where the reference reads an uninitialised one). A segment's samples
+    are summed in walk order, one add each, as kernel 4 sums them: the sum
+    does not depend on the walk's static length (a reduction's tree
+    would)."""
     s_active = s_valid & seg_valid[..., None]
     seg_ok = (ok_s | ~s_active).all(dim=-1)
     n_s = torch.clamp_min(s_active.sum(dim=-1), 1)
-    seg_trav = torch.where(s_active, trav_s, 0.0).sum(dim=-1) / n_s
+    vals = torch.where(s_active, trav_s, 0.0)
+    seg_sum = vals[..., 0]
+    for t in range(1, vals.shape[-1]):
+        seg_sum = seg_sum + vals[..., t]
+    seg_trav = seg_sum / n_s
 
     d = ends - starts
     seg_len = sqrt_f32(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
