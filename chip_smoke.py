@@ -1008,11 +1008,16 @@ def circ_kernel_phase(card_line, batches, device_ms, cuda_ms):
         ms = device_ms(lambda: kernel(args), 100)
         plain_ms = cuda_ms(lambda: plain(args), 20)
         times.append(ms)
+        work = circ_kernel.work_counts(*args[:6], args[7])
+        bound_ms, bound_by = roofline.bound(circ_kernel.kernel_bytes(P, N, work),
+                                            circ_kernel.kernel_operations(P, work))
         cap = "whole segments" if args[5] is None else f"max_segment_cells {args[5]}"
         log(f"kernel 4 {name} ({card_line}): {P} x {N}, {cap}, {n_safe} safe, {n_one} "
             f"single-pose paths bit-identical; against the plain version is_safe equal, trav "
             f"max diff {err:g}, a second launch bit-identical; {ms:.4f} ms a call on the "
-            f"device, plain {plain_ms:.4f} ms")
+            f"device, plain {plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by}, "
+            f"{100 * bound_ms / ms:.2f}%), {work.samples} samples, {work.spiral_cells} spiral "
+            f"cells")
     # config 4's circle meets no plateau (the tick's paths are all safe);
     # the other batches hold both verdicts
     if not 0 < n_safe_all < n_all:
@@ -1031,6 +1036,12 @@ def circ_kernel_phase(card_line, batches, device_ms, cuda_ms):
     nbytes = circ_kernel.kernel_bytes(P, N, work)
     ops = circ_kernel.kernel_operations(P, work)
     bound_ms, bound_by = roofline.bound(nbytes, ops)
+    t_args = list(batches.values())[1]
+    t_host = (t_args[0], t_args[1].cpu().numpy(), t_args[2].cpu().numpy()) + tuple(t_args[3:])
+    tick_call_ms = cuda_ms(lambda: kernel(t_args), 100)
+    tick_host_call_ms = cuda_ms(lambda: kernel(t_host), 100)
+    log(f"kernel 4 at the tick's 256 x 10 ({card_line}): wrapper call {tick_call_ms:.4f} ms on "
+        f"device tensors, {tick_host_call_ms:.4f} ms from host arrays (one staged upload)")
     log(f"kernel 4 at {name} ({card_line}): {ms:.4f} ms device time, an empty kernel at its "
         f"geometry {empty_ms:.4f} ms; wrapper call {call_ms:.4f} ms on device tensors, "
         f"{host_call_ms:.4f} ms from host arrays (one staged upload); plain {plain_ms:.4f} ms; "
@@ -1038,7 +1049,8 @@ def circ_kernel_phase(card_line, batches, device_ms, cuda_ms):
         f"{100 * bound_ms / ms:.2f}% of it")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "empty_ms": empty_ms, "call_ms": call_ms,
-            "host_call_ms": host_call_ms, "tick_ms": times[1]}
+            "host_call_ms": host_call_ms, "tick_ms": times[1],
+            "tick_host_call_ms": tick_host_call_ms}
 
 
 # phase 9's sizes: (b) config 4's map and submaps, 10 ticks on a 5 m circle of
@@ -1941,6 +1953,7 @@ def main() -> None:
     update_kernel.fused_update.launches = 0
     field_kernel.dense_circle_field.launches = 0
     circ_kernel.check_circular_paths.launches = 0
+    circ_kernel.device_inputs.copies = 0
     est.update(terrain)
     safe, trav = est.check_circular_paths_batch(poses, n_poses, radius)
     few_res = est.check_footprint_path(few)
@@ -1950,9 +1963,18 @@ def main() -> None:
         "circle_field": field_kernel.dense_circle_field.launches,
         "circ_paths": circ_kernel.check_circular_paths.launches,
     }
-    log(f"main path launches: {launches}")
+    log(f"main path launches: {launches}; circular batches' pose uploads: "
+        f"{circ_kernel.device_inputs.copies}; check_circles on the card: "
+        f"{footprint.check_circles.card_calls}")
     if min(launches.values()) < 1:
         fail(f"a kernel of the main path did not launch: {launches}")
+    # each circular batch: one launch of kernel 4, one copy of its poses and
+    # counts, no check_circles (the few include a path of one pose)
+    if circ_kernel.device_inputs.copies != launches["circ_paths"] \
+            or footprint.check_circles.card_calls:
+        fail(f"main path: {circ_kernel.device_inputs.copies} pose uploads and "
+             f"{footprint.check_circles.card_calls} check_circles calls on the card for "
+             f"{launches['circ_paths']} circular batches")
 
     cpu = TraversabilityEstimator(EstimatorConfig(resolution=res), device="cpu")
     cpu.update(terrain)
@@ -2676,9 +2698,10 @@ def main() -> None:
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None,
          # the tick's 256 x 10, an empty kernel at kernel 4's geometry (its
          # launch floor), the wrapper call from device tensors and from host
-         # arrays, check_circles' calls on the card's circular paths
+         # arrays (at the tick's batch too), check_circles' calls on the
+         # card's circular paths
          "tick_ms": k4["tick_ms"], "empty_ms": k4["empty_ms"], "call_ms": k4["call_ms"],
-         "host_call_ms": k4["host_call_ms"],
+         "host_call_ms": k4["host_call_ms"], "tick_host_call_ms": k4["tick_host_call_ms"],
          "check_circles_on_card": footprint.check_circles.card_calls},
     ]
     log(json.dumps({"kernels": kernels}))

@@ -787,14 +787,18 @@ def test_circ_kernel_matches_plain(cuda, case):
 
 def test_circ_kernel_host_inputs_match_device_inputs(cuda):
     """Poses and counts from host arrays go up through the staging buffer in
-    one copy: the same bits as from device tensors, over batches of growing
-    size taken in turn (the buffer's two slots and its growth)."""
+    one copy (none from device tensors): the same bits as from device
+    tensors, over batches of growing size taken in turn (the buffer's two
+    slots and its growth)."""
     for case in ("tick_256x10_whole", "cell_mixed_single_whole", "tick_256x10_whole",
                  "single_poses"):
         state, poses, n_poses, max_cells, field, has_single = _circ_batch(case, cuda)
+        copies = circ_kernel.device_inputs.copies
         dev = footprint.check_circular_paths(state, poses, n_poses, 0.3, 0.15, max_cells,
                                              field, has_single)
+        assert circ_kernel.device_inputs.copies == copies
         host = footprint.check_circular_paths(state, poses.cpu().numpy(), n_poses.cpu().numpy(),
                                               0.3, 0.15, max_cells, field, has_single)
+        assert circ_kernel.device_inputs.copies == copies + 1
         torch.cuda.synchronize()
         assert torch.equal(dev[0], host[0]) and _bits_equal(dev[1], host[1])

@@ -267,6 +267,22 @@ def test_host_profile_circular_cell_cpu_run(tmp_path):
     assert cum == sorted(cum, reverse=True)
 
 
+def test_host_profile_tick_cell_cpu_run(tmp_path):
+    """host_profile's tick cell at a small size on the CPU: the fused tick's
+    functions by cumulative time, with the port imported from the tree
+    `--root` names (this one)."""
+    out = tmp_path / "hp.json"
+    assert host_profile.main(["--cell", "online_tick_1667", "--device", "cpu", "--map-cells",
+                              "400", "--paths", "8", "--epochs", "2", "--warmup", "1",
+                              "--top", "200", "--root", str(host_profile.ROOT),
+                              "--json", str(out)]) == 0
+    row = json.loads(out.read_text())
+    assert row["cell"] == "online_tick_1667" and row["tick_ms_p50"] > 0
+    names = [r["function"] for r in row["functions"]]
+    assert any("_online_tick" in n for n in names)
+    assert any("check_circular_paths" in n for n in names)
+
+
 def test_ab_pairs_claim_rule():
     """ab_pairs' comparison: wins by the metric's direction, ties for
     neither side, a claim only with nine tenths of the pairs won and the

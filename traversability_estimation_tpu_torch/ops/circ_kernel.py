@@ -121,108 +121,85 @@ def spiral_table(radius_max: float, resolution: float) -> np.ndarray:
     return table
 
 
-_tables: Dict[tuple, torch.Tensor] = {}
-
-
+@functools.lru_cache(maxsize=None)
 def device_spiral_table(radius_max: float, resolution: float,
                         device: torch.device) -> torch.Tensor:
     """``spiral_table`` on `device`, uploaded once per (radius, resolution,
     device)."""
-    key = (float(radius_max), float(resolution), str(device))
-    table = _tables.get(key)
-    if table is None:
-        table = torch.as_tensor(np.array(spiral_table(radius_max, resolution)), device=device)
-        _tables[key] = table
-    return table
+    return torch.as_tensor(np.array(spiral_table(radius_max, resolution)), device=device)
 
 
 class _Staging:
-    """Pinned host buffers of one device for the inputs a batch brings from
-    the host, in two slots taken in turn, each grown as needed and guarded
-    by the event of its last copy: a slot is written again only once that
-    copy has left it. A fresh pin per call would cost more than the
-    pageable copy it replaces."""
+    """Pinned host buffers of one device for a batch's poses and pose counts,
+    in two slots taken in turn, each grown as needed and guarded by the
+    event of its last copy: a slot is written again only once that copy has
+    left it. A fresh pin per call would cost more than the pageable copies
+    it replaces."""
 
     def __init__(self) -> None:
         self.lock = threading.Lock()
         self.host: List[Optional[torch.Tensor]] = [None, None]
+        self.views: List[Optional[np.ndarray]] = [None, None]  # the slots as numpy bytes
         self.events: List[Optional[torch.cuda.Event]] = [None, None]
         self.turn = 0
 
-    def upload(self, parts, dev: torch.device) -> List[torch.Tensor]:
-        """`parts`: (array, numpy dtype, shape) of each input; each goes at a
-        16-byte aligned offset of one buffer, converted to its dtype as it
-        is written, and the buffer goes up in one ``non_blocking`` copy on
-        the current stream. Returns the inputs as views of the device
-        buffer."""
-        offsets, total = [], 0
-        for _, dtype, shape in parts:
-            offsets.append(total)
-            total += -(-int(np.prod(shape)) * np.dtype(dtype).itemsize // 16) * 16
+    def upload(self, poses: np.ndarray, n_poses: np.ndarray,
+               dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`poses` (P, N, 2) and `n_poses` (P,), converted to float32 and
+        int32 as they are written into a slot, the poses first; the slot
+        goes up in one ``non_blocking`` copy on the current stream. Returns
+        both as views of the one device buffer."""
+        P, N = poses.shape[:2]
+        pb = P * N * 8
+        total = pb + P * 4
         with self.lock:
             i, self.turn = self.turn, self.turn ^ 1
-            host, event = self.host[i], self.events[i]
+            host = self.host[i]
             if host is None or host.numel() < total:
                 size = max(total, 2 * (0 if host is None else host.numel()), 1 << 16)
                 host = self.host[i] = torch.empty(size, dtype=torch.uint8, pin_memory=True)
-            elif event is not None:
-                event.synchronize()
-            buf = host.numpy()
-            for (a, dtype, shape), o in zip(parts, offsets):
-                n = int(np.prod(shape)) * np.dtype(dtype).itemsize
-                np.copyto(buf[o:o + n].view(dtype).reshape(shape), a, casting="unsafe")
+                self.views[i] = host.numpy()
+                self.events[i] = torch.cuda.Event()
+            else:
+                self.events[i].synchronize()
+            buf = self.views[i]
+            np.copyto(buf[:pb].view(np.float32).reshape(P, N, 2), poses, casting="unsafe")
+            np.copyto(buf[pb:total].view(np.int32), n_poses, casting="unsafe")
             dev_buf = torch.empty(total, dtype=torch.uint8, device=dev)
             dev_buf.copy_(host[:total], non_blocking=True)
-            if event is None:
-                event = self.events[i] = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-        out = []
-        for (_, dtype, shape), o in zip(parts, offsets):
-            n = int(np.prod(shape)) * np.dtype(dtype).itemsize
-            out.append(dev_buf[o:o + n].view(_TORCH_DTYPES[dtype]).view(shape))
-        return out
+            self.events[i].record(torch.cuda.current_stream(dev))
+        return dev_buf[:pb].view(torch.float32).view(P, N, 2), dev_buf[pb:].view(torch.int32)
 
 
-_TORCH_DTYPES = {np.float32: torch.float32, np.int32: torch.int32}
 _staging: Dict[str, _Staging] = {}
 _staging_lock = threading.Lock()
 
 
 def device_inputs(poses, n_poses, dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(poses (P, N, 2) float32, 16-byte aligned; n_poses (P,) int32) on
-    `dev`. Tensors already there are used as they are (copied only to align
-    or convert); what lies on the host goes up in one copy from the
-    device's staging buffer."""
-    on_dev = [isinstance(t, torch.Tensor) and t.device.type == "cuda" for t in (poses, n_poses)]
-    host = [None if d else (t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t))
-            for t, d in zip((poses, n_poses), on_dev)]
-    shape = tuple(poses.shape) if on_dev[0] else host[0].shape
-    if len(shape) != 3 or shape[1] < 1 or shape[2] != 2:
-        raise ValueError(f"check_circular_paths: poses {shape}, expected (P, N, 2)")
-    n_shape = tuple(n_poses.shape) if on_dev[1] else host[1].shape
-    if n_shape != shape[:1]:
-        raise ValueError(f"check_circular_paths: n_poses {n_shape} for {shape[0]} paths")
-    parts = []
-    if not on_dev[0]:
-        parts.append((host[0], np.float32, shape))
-    if not on_dev[1]:
-        parts.append((host[1], np.int32, n_shape))
-    up = []
-    if parts and shape[0] > 0:
-        with _staging_lock:
-            st = _staging.setdefault(str(dev), _Staging())
-        up = st.upload(parts, dev)
-    elif parts:
-        up = [torch.empty(s, dtype=_TORCH_DTYPES[d], device=dev) for _, d, s in parts]
-    up = iter(up)
-    if on_dev[0]:
+    `dev`. Poses already on the card are used as they are (copied only to
+    align or convert), with their counts; poses from the host go up with
+    their counts in one copy from the device's staging buffer, counted in
+    ``device_inputs.copies``."""
+    if isinstance(poses, torch.Tensor) and poses.is_cuda:
         p = poses.to(device=dev, dtype=torch.float32).contiguous()
-        if p.data_ptr() % 16:
-            p = p.clone()
+        n = torch.as_tensor(n_poses, dtype=torch.int32, device=dev).contiguous()
     else:
-        p = next(up)
-    n = n_poses.to(device=dev, dtype=torch.int32).contiguous() if on_dev[1] else next(up)
-    return p, n
+        p = poses.numpy() if isinstance(poses, torch.Tensor) else np.asarray(poses)
+        n = n_poses.cpu().numpy() if isinstance(n_poses, torch.Tensor) else np.asarray(n_poses)
+    if p.ndim != 3 or p.shape[1] < 1 or p.shape[2] != 2:
+        raise ValueError(f"check_circular_paths: poses {tuple(p.shape)}, expected (P, N, 2)")
+    if tuple(n.shape) != tuple(p.shape[:1]):
+        raise ValueError(f"check_circular_paths: n_poses {tuple(n.shape)} for {p.shape[0]} paths")
+    if isinstance(p, torch.Tensor):
+        return (p.clone() if p.data_ptr() % 16 else p), n
+    with _staging_lock:
+        st = _staging.setdefault(str(dev), _Staging())
+        device_inputs.copies += 1
+    return st.upload(p, n, dev)
+
+
+device_inputs.copies = 0
 
 
 _lib = None
@@ -299,8 +276,7 @@ def check_circular_paths(
     position = torch.as_tensor(state.position, dtype=torch.float32, device=dev).contiguous()
     default = float(state.default_traversability)
     fill = default if default != 0.0 else -1.0 - default
-    with np.errstate(divide="ignore"):
-        span_rcp = rcp(rmax - radius)
+    span_rcp = rcp(rmax - radius) if rmax != radius else math.inf  # float32 1 / 0
     plan = launch_plan(P, N)
     lib = library()
     with torch.cuda.device(dev):
