@@ -103,14 +103,14 @@ Phases (any failure exits non-zero):
    (pose counts 0, 1, 2, N and N + 1, paths off the map and on both
    borders, ~1 m segments cut at 8 cells, zero-length paths and segments;
    a default traversability of 0.5 and of 0; a batch of single poses);
-   and 64 paths of 800 poses, whose poses the kernel reads from global
-   memory. Bars: one launch a call and no ``check_circles`` on the card,
+   and 64 paths of 800 poses, whose block's poses take two stages of
+   shared memory. Bars: one launch a call and no ``check_circles`` on the card,
    is_safe equal, traversability within 1e-6 (a single-pose path's bit for
    bit), a second launch bit-identical, verdicts of both kinds over the
    batches (the tick's are all safe: config 4's circle meets no plateau).
    CUDA-event times of kernel 4 and of the plain version on each batch;
    at the whole 1024 x 50 batch the wrapper call's (device tensors, and
-   host arrays through the staging copy), an empty kernel's at kernel 4's
+   host arrays through their uploads), an empty kernel's at kernel 4's
    geometry (the launch floor) and the bound from the work this batch
    needs (``circ_kernel.work_counts``). Over the whole run
    ``check_circles`` must not have run on the card outside the referees;
@@ -1041,10 +1041,10 @@ def circ_kernel_phase(card_line, batches, device_ms, cuda_ms):
     tick_call_ms = cuda_ms(lambda: kernel(t_args), 100)
     tick_host_call_ms = cuda_ms(lambda: kernel(t_host), 100)
     log(f"kernel 4 at the tick's 256 x 10 ({card_line}): wrapper call {tick_call_ms:.4f} ms on "
-        f"device tensors, {tick_host_call_ms:.4f} ms from host arrays (one staged upload)")
+        f"device tensors, {tick_host_call_ms:.4f} ms from host arrays (uploaded)")
     log(f"kernel 4 at {name} ({card_line}): {ms:.4f} ms device time, an empty kernel at its "
         f"geometry {empty_ms:.4f} ms; wrapper call {call_ms:.4f} ms on device tensors, "
-        f"{host_call_ms:.4f} ms from host arrays (one staged upload); plain {plain_ms:.4f} ms; "
+        f"{host_call_ms:.4f} ms from host arrays (uploaded); plain {plain_ms:.4f} ms; "
         f"{work}, {nbytes} bytes, {ops} operations: bound {bound_ms:.6f} ms ({bound_by}), "
         f"{100 * bound_ms / ms:.2f}% of it")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1968,8 +1968,8 @@ def main() -> None:
         f"{footprint.check_circles.card_calls}")
     if min(launches.values()) < 1:
         fail(f"a kernel of the main path did not launch: {launches}")
-    # each circular batch: one launch of kernel 4, one copy of its poses and
-    # counts, no check_circles (the few include a path of one pose)
+    # each circular batch: one launch of kernel 4, one upload of its poses,
+    # no check_circles (the few include a path of one pose)
     if circ_kernel.device_inputs.copies != launches["circ_paths"] \
             or footprint.check_circles.card_calls:
         fail(f"main path: {circ_kernel.device_inputs.copies} pose uploads and "

@@ -263,7 +263,8 @@ def test_estimator_routes_a_generic_chain_like_jax(elevation):
     safe_t, trav_t = test.online_tick(patch, (0.1, -0.1), poses, np.int32([2]), radius=0.1)
     safe_j, trav_j = jest.online_tick(patch, (0.1, -0.1), poses, np.int32([2]), radius=0.1)
     assert update_kernel.fused_update.launches == before  # the CPU runs the plain version
-    assert test._max_cells_hwm == 0  # the unfused sequence, not the fused tick
+    # the unfused sequence, not the fused tick (which keeps its query crop)
+    assert not any(k[0] == "tick_crop" for k in test._epoch.fields)
     assert bool(safe_t[0]) == bool(np.asarray(safe_j)[0])
     np.testing.assert_allclose(float(trav_t[0]), float(np.asarray(trav_j)[0]), atol=2e-4)
     ref, out = jest.traversability_map.layers, test.traversability_map.layers

@@ -12,11 +12,12 @@ package's ``check_circular_paths`` at that cap. A serial transliteration of
 the kernel (its single-pose spiral walk with ``_prefix_sum``'s pairwise
 sums, its segment walk and its lane tree) equals ``check_circles`` bit for
 bit and the plain version's verdicts exactly (traversability within 1e-6,
-its own bar against JAX). On a CUDA state the estimator's batch, tick and
-served paths pass no cap and run no ``check_circles`` on the host side of
-the kernel, and non-finite poses raise what they raise on the CPU. The
-kernel itself runs on the card (``tests/test_torch_kernels.py``,
-``chip_smoke.py``).
+its own bar against JAX), and its stages of a block's poses give every
+lane its segments in order. The estimator's batch, tick and served paths
+pass no cap on either device and run no ``check_circles`` on the host side
+of the kernel, and non-finite poses raise on a CUDA state what they raise
+on the CPU. The kernel itself runs on the card
+(``tests/test_torch_kernels.py``, ``chip_smoke.py``).
 """
 
 import dataclasses
@@ -140,6 +141,36 @@ def spy(monkeypatch):
     return calls
 
 
+def test_cpu_paths_pass_no_cap(est, monkeypatch):
+    """On the CPU too, the batch, the served circular paths and the fused
+    tick ask the plain version to walk every segment whole
+    (``max_segment_cells=None``) and make no pass over the poses' lengths
+    (``_max_segment_cells``)."""
+    caps, spied = [], []
+    plain = tfp.check_circular_paths_plain
+    cells = TraversabilityEstimator._max_segment_cells
+
+    def recording(*args):
+        caps.append(args[5])
+        return plain(*args)
+
+    def spy_cells(self, *args):
+        spied.append("_max_segment_cells")
+        return cells(self, *args)
+
+    monkeypatch.setattr(tfp, "check_circular_paths_plain", recording)
+    monkeypatch.setattr(TraversabilityEstimator, "_max_segment_cells", spy_cells)
+    poses, n_poses = _batch(seed=6)
+    est.check_circular_paths_batch(poses, n_poses, 0.3)
+    est.check_footprint_path([FootprintPath(poses=poses[k, :3], radius=0.3) for k in range(4)])
+    e = TraversabilityEstimator(EstimatorConfig(resolution=0.05), device="cpu")
+    assert e.update(_terrain(160, 160, seed=91))
+    patch, centre, tick_poses, tick_n = _tick_args(9)
+    assert e.online_tick(patch, centre, tick_poses, tick_n, radius=0.3) is not None
+    assert any(k[0] == "tick_crop" for k in e._epoch.fields)  # the tick ran fused
+    assert caps == [None, None, None] and spied == []
+
+
 def test_call_sites_reach_the_dispatch(est, spy):
     """``check_circular_paths_batch``, the service's circular paths and the
     fused online tick each go through ``check_circular_paths``, once per
@@ -188,13 +219,61 @@ def test_sample_cells_are_the_line_walk_every_fourth_cell(m):
 @pytest.mark.parametrize("P, grid", [(1, 1), (4, 1), (5, 2), (256, 64), (1024, 256)])
 def test_launch_plan(P, grid):
     """A warp per path; a block's poses and their cells (16 bytes a pose) in
-    shared memory up to 512 poses a path (32 KB), read from global memory
-    beyond."""
-    for N, smem in ((1, 64), (10, 640), (50, 3200), (512, 32768), (513, 0)):
+    shared memory, a stage of at most 4 x 512 segment starts and the pose
+    after them (32 KB) at a time."""
+    for N, smem in ((1, 64), (10, 640), (50, 3200), (512, 32768), (513, 32784),
+                    (800, 32784)):
         plan = circ_kernel.launch_plan(P, N)
         assert (plan.grid, plan.block) == (grid, 32 * circ_kernel.WARPS)
         assert plan.grid * circ_kernel.WARPS >= P > (plan.grid - 1) * circ_kernel.WARPS
         assert plan.smem == smem <= 48 * 1024
+
+
+def _stage_walk(P, N, n_poses):
+    """Kernel 4's stages transliterated: per path and lane, the segments j
+    the lane walks, in its order, over every stage of the path's block;
+    each segment's staged poses lie in the stage, which fits the plan's
+    shared memory."""
+    S, W = circ_kernel.STAGE_POSES, circ_kernel.WARPS
+    plan = circ_kernel.launch_plan(P, N)
+    order = {}
+    for blk in range(plan.grid):
+        first = blk * W
+        total = min(W, P - first) * N
+        c0 = 0
+        while True:
+            count = min(S + 1, total - c0)
+            assert 1 <= count and 16 * count <= plan.smem
+            for w in range(W):
+                p = first + w
+                last = min(N - 1, int(n_poses[p]) - 1) if p < P else 0
+                lo, hi = max(0, c0 - w * N), min(last, c0 + S - w * N)
+                for lane in range(32):
+                    for j in range(lo + ((lane - lo) & 31), hi, 32):
+                        i = w * N + j - c0
+                        assert 0 <= i and i + 1 < count
+                        order.setdefault((p, lane), []).append(j)
+            if c0 + S + 1 >= total:
+                break
+            c0 += S
+    return order
+
+
+@pytest.mark.parametrize("P, N", [(5, 1), (7, 50), (4, 512), (6, 513), (9, 800), (3, 2049),
+                                  (5, 3000)])
+def test_stages_walk_every_segment_in_lane_order(P, N):
+    """Over the stages of its block's poses, lane l of a path's warp walks
+    the path's valid segments l, l + 32, l + 64, ... once each and in that
+    order, as one stage would: the sums do not depend on the staging."""
+    rng = np.random.default_rng(N)
+    n_poses = rng.integers(0, N + 2, P)
+    n_poses[: min(P, 3)] = [0, 1, N][: min(P, 3)]
+    order = _stage_walk(P, N, n_poses)
+    for p in range(P):
+        last = min(N - 1, int(n_poses[p]) - 1)
+        for lane in range(32):
+            assert order.get((p, lane), []) == list(range(lane, max(last, 0), 32))
+    assert sum(map(len, order.values())) == sum(max(min(N - 1, int(k) - 1), 0) for k in n_poses)
 
 
 def test_launch_plan_refuses_an_empty_batch():
@@ -629,7 +708,7 @@ def test_card_paths_pass_no_cap_and_run_no_check_circles(card):
     assert e.online_tick(patch, centre, tick_poses, tick_n, radius=0.3) is not None
     assert calls[2:] == [(tick_poses.shape, None, True)]
     assert any(k[0] == "tick_crop" for k in e._epoch.fields)  # the tick ran fused
-    assert spied == [] and e._max_cells_hwm == 0
+    assert spied == []
 
 
 @pytest.mark.parametrize("bad", ["nan", "inf", "-inf", "huge"])

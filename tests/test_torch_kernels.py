@@ -25,14 +25,14 @@ The circular path batch is kernel 4 (``csrc/circ_paths.cu``): its cases hold
 ``check_circles`` on the card) to its plain version on the same CUDA
 tensors at the ``circ_paths_336`` cell's 1024 x 50 batch and the online
 tick's 256 x 10, each at the estimator's cap and walked whole, the cell's
-batch with a quarter of its paths of one pose, paths of 800 poses (read from
-global memory, not staged) and edge batches (pose counts 0, 1, 2, N and
+batch with a quarter of its paths of one pose, paths of 800 poses (a block's
+poses in two stages of shared memory) and edge batches (pose counts 0, 1, 2, N and
 more, poses off the map and on its border, segments longer than
 ``max_segment_cells``, a path of zero length, a default traversability of 0
 and of 0.5, a batch of single poses): is_safe equal, traversability within
 1e-6 (the plain version's own bar against JAX), a single-pose path's bit for
-bit, two launches to the same bits; poses and counts from host arrays (the
-staged upload) give the same bits as from device tensors.
+bit, two launches to the same bits; poses and counts from host arrays give
+the same bits as from device tensors.
 """
 
 import numpy as np
@@ -786,10 +786,8 @@ def test_circ_kernel_matches_plain(cuda, case):
 
 
 def test_circ_kernel_host_inputs_match_device_inputs(cuda):
-    """Poses and counts from host arrays go up through the staging buffer in
-    one copy (none from device tensors): the same bits as from device
-    tensors, over batches of growing size taken in turn (the buffer's two
-    slots and its growth)."""
+    """Poses from host arrays go up in one copy (none from device tensors):
+    the same bits as from device tensors, over batches of several sizes."""
     for case in ("tick_256x10_whole", "cell_mixed_single_whole", "tick_256x10_whole",
                  "single_poses"):
         state, poses, n_poses, max_cells, field, has_single = _circ_batch(case, cuda)

@@ -15,7 +15,8 @@ the CPU at small sizes, against the JAX package's:
 - the public names of every module this slice ports against its JAX
   counterpart's, each difference listed with its reason;
 - the port's own measuring scripts, which the JAX package lacks:
-  ``host_profile`` at a small size, and ``ab_pairs``' comparison rule.
+  ``host_profile`` at a small size, and ``ab_pairs``' comparison rule and
+  its summary of a cut run.
 """
 
 import importlib
@@ -300,6 +301,34 @@ def test_ab_pairs_claim_rule():
     # every pair won, by less than the parent's own spread
     r = ab_pairs.compare(parent, [p - 0.01 for p in parent], "lower")
     assert r["wins"] == 10 and not r["claimable"]
+
+
+def test_ab_pairs_reads_the_whole_pairs_of_a_cut_run(tmp_path, capsys):
+    """``--read`` runs nothing: it summarises the whole pairs already in
+    the out-dir (a third pair with one side missing is left out) by the
+    same rule, and refuses to start without ``--parent`` otherwise."""
+    def line(p50, busy):
+        entry = {"correct": True, "metrics": {"tick_ms_p50": p50, "tick_ms_p90": 2 * p50},
+                 "per_layer": {"device_busy_ms_per_unit": busy, "k1_pct_sol": 9.0}}
+        return {"card": "card, 1 W", "workloads": {"online_tick_1667": entry}}
+
+    runs = {"00_parent": line(1.2, 0.2), "00_change": line(1.0, 0.2),
+            "01_change": line(1.1, 0.19), "01_parent": line(1.3, 0.2),
+            "02_parent": line(1.0, 0.2)}
+    for name, row in runs.items():
+        (tmp_path / f"online_tick_1667_{name}.json").write_text(json.dumps(row))
+    out = tmp_path / "summary.json"
+    assert ab_pairs.main(["--read", "--out-dir", str(tmp_path), "--cell", "online_tick_1667",
+                          "--json", str(out)]) == 0
+    cell = json.loads(out.read_text())["cells"]["online_tick_1667"]
+    assert cell["correct"] and cell["cards"] == ["card, 1 W"]
+    p50 = cell["numbers"]["tick_ms_p50"]
+    assert (p50["parent"], p50["change"], p50["wins"], p50["pairs"]) == (
+        [1.2, 1.3], [1.0, 1.1], 2, 2)
+    assert cell["numbers"]["device_busy_ms_per_unit"]["wins"] == 1
+    assert "change won 2 of 2 pairs" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        ab_pairs.main(["--out-dir", str(tmp_path)])
 
 
 def _jax_script(name):

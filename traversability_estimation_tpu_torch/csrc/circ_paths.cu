@@ -19,11 +19,14 @@
 //     poses to size a static walk. A cap S remains for a caller that passes
 //     max_segment_cells (S = INT_MAX: none);
 //   - one warp per path, 4 paths a block; a block's 4 x N poses are
-//     contiguous, and one bulk asynchronous copy (cp.async.bulk, completion
+//     contiguous, and a bulk asynchronous copy (cp.async.bulk, completion
 //     on an mbarrier) brings them into shared memory, where each pose's cell
 //     is computed once (a segment's two ends are shared with its
-//     neighbours). Paths of more than kStageMaxPoses poses read the poses
-//     from global memory instead (kStaged = false);
+//     neighbours). One copy a stage: a stage holds kStagePoses segment
+//     starts (4 paths of 512 poses) and the pose after them, 32 KB with
+//     their cells, within the 48 KB a launch has without opting in, so the
+//     main path's 4 x 50 take one; longer paths take the stages in turn, a
+//     lane's segments still in order;
 //   - a sample's cell comes from the Bresenham closed form over(k) =
 //     (denom / 2 + k * num_add) / max(denom, 1) (grid_map's LineIterator,
 //     walked from the segment's END to its START as the reference walks
@@ -55,10 +58,9 @@
 
 constexpr int kThreads = 32 * CIRC_WARPS;
 constexpr unsigned kFull = 0xffffffffu;
-// poses a path may have for its block's poses and cells (16 bytes a pose,
-// 4 paths: 32 KB) to stay within the 48 KB of shared memory a launch has
-// without opting in
-constexpr int kStageMaxPoses = 512;
+// segment starts a stage of the block's poses holds; with the pose after
+// the last and every pose's cell, 16 bytes a pose: 32 KB
+constexpr int kStagePoses = 4 * 512;
 
 struct CircParams {
   const float* poses;        // (P, N, 2)
@@ -193,30 +195,86 @@ __device__ __forceinline__ void single_pose(const CircParams& q, float p0x, floa
   *trav_out = inflate ? __fmul_rn(mean, factor) : (hard ? 0.0f : mean);
 }
 
-template <bool kStaged>
+// One segment of a path, poses s -> e with cells cs -> ce: its samples'
+// verdict and mean (the walk from the END cell to the START cell, as the
+// reference walks it), added to the lane's sums in order.
+__device__ __forceinline__ void walk_segment(const CircParams& q, float2 s, float2 e, int2 cs,
+                                             int2 ce, bool& all_ok, float& sum_len,
+                                             float& sum_wt, float& sum_t, float& cnt) {
+  const int fi = ce.x, fj = ce.y, li = cs.x, lj = cs.y;
+  const int di = abs(li - fi), dj = abs(lj - fj);
+  const int si = li >= fi ? 1 : -1, sj = lj >= fj ? 1 : -1;
+  const bool x_dom = di >= dj;
+  const int denom = x_dom ? di : dj, num_add = x_dom ? dj : di;
+  const int half = denom / 2, safe_denom = max(denom, 1);
+  bool seg_ok = true;
+  int n_s = 0;
+  float acc = 0.0f;
+  // samples k = 0, 4, 8, ... of the denom + 1 cells (at most S of them)
+  for (int t = 0; t < q.S && 4 * t <= denom; ++t) {
+    const int k = 4 * t;
+    const int over = k == 0 ? 0 : (half + k * num_add) / safe_denom;
+    const int ci = fi + si * (x_dom ? k : over);
+    const int cj = fj + sj * (x_dom ? over : k);
+    float v = q.fill;
+    if (ci >= 0 && ci < q.H && cj >= 0 && cj < q.W) {
+      const size_t g = (size_t)ci * q.W + cj;
+      const float tv = q.field_trav[g];
+      v = q.field_ok[g] ? tv : __fsub_rn(-1.0f, tv);
+    }
+    const bool ok_s = v >= 0.0f;
+    seg_ok = seg_ok && ok_s;
+    acc = __fadd_rn(acc, ok_s ? v : __fsub_rn(-1.0f, v));
+    ++n_s;
+  }
+  const float seg_trav = __fdiv_rn(acc, (float)max(n_s, 1));
+  const float dx = __fsub_rn(e.x, s.x), dy = __fsub_rn(e.y, s.y);
+  const float len = __fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
+  all_ok = all_ok && seg_ok;
+  sum_len = __fadd_rn(sum_len, len);
+  sum_wt = __fadd_rn(sum_wt, __fmul_rn(len, seg_trav));
+  sum_t = __fadd_rn(sum_t, seg_trav);
+  cnt = __fadd_rn(cnt, 1.0f);
+}
+
 __global__ void __launch_bounds__(kThreads) circ_paths_kernel(const CircParams q) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int first = blockIdx.x * CIRC_WARPS;
-  const int p = first + (threadIdx.x >> 5);
+  const int p = first + warp;
+  const bool live = p < q.P;
+  const int n = live ? q.n_poses[p] : 0;
   // P0 as map_origin computes it: position + (H, W) * res * 0.5
   const float p0x = __fadd_rn(q.position[0], __fmul_rn(__fmul_rn((float)q.H, q.res), 0.5f));
   const float p0y = __fadd_rn(q.position[1], __fmul_rn(__fmul_rn((float)q.W, q.res), 0.5f));
-  const float2* pose;  // this warp's path
-  const int2* cell = nullptr;
-  if constexpr (kStaged) {
-    // the block's paths' poses, one bulk copy (16-byte multiple; a last
-    // 8 bytes by a plain load), then each pose's cell once
-    float2* s_pose = reinterpret_cast<float2*>(smem);
-    int2* s_cell = reinterpret_cast<int2*>(smem + (size_t)32 * q.N);
-    const int count = min(CIRC_WARPS, q.P - first) * q.N;
-    const unsigned bytes = (unsigned)count * 8u, bulk = bytes & ~15u;
-    const float2* src = reinterpret_cast<const float2*>(q.poses) + (size_t)first * q.N;
-    const uint32_t b = smem_addr(&bar);
+  // the block's poses (its paths', contiguous) and their cells, a stage at
+  // a time: kStagePoses segment starts and the pose after the last
+  const int cap = min(CIRC_WARPS * q.N, kStagePoses + 1);
+  float2* s_pose = reinterpret_cast<float2*>(smem);
+  int2* s_cell = reinterpret_cast<int2*>(smem + (size_t)8 * cap);
+  const int total = min(CIRC_WARPS, q.P - first) * q.N;
+  const float2* src = reinterpret_cast<const float2*>(q.poses) + (size_t)first * q.N;
+  const uint32_t b = smem_addr(&bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // this warp's path: its segments j < last, the lane's j = lane (mod 32)
+  // in order, over the stages
+  const int base = warp * q.N;  // the path's first pose in the block's
+  const int last = live ? min(q.N - 1, n - 1) : 0;
+  bool all_ok = true;
+  float sum_len = 0.0f, sum_wt = 0.0f, sum_t = 0.0f, cnt = 0.0f;
+  for (int c0 = 0, phase = 0;; c0 += kStagePoses, phase ^= 1) {
+    // one bulk copy of the stage (a 16-byte multiple; an odd last pose by
+    // a plain load), completion on the mbarrier
+    const int count = min(kStagePoses + 1, total - c0);
     if (threadIdx.x == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      const unsigned bytes = (unsigned)count * 8u, bulk = bytes & ~15u;
+      // the stage before was read through the generic proxy
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
                    "r"(bulk)
@@ -225,30 +283,35 @@ __global__ void __launch_bounds__(kThreads) circ_paths_kernel(const CircParams q
         asm volatile(
             "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
             "[%3];\n" ::"r"(smem_addr(s_pose)),
-            "l"(src), "r"(bulk), "r"(b)
+            "l"(src + c0), "r"(bulk), "r"(b)
             : "memory");
-      if (bytes != bulk) s_pose[count - 1] = src[count - 1];
+      if (bytes != bulk) s_pose[count - 1] = src[c0 + count - 1];
     }
     __syncthreads();
     uint32_t done = 0;
     while (!done)
       asm volatile(
-          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
           " selp.u32 %0, 1, 0, p;\n}\n"
           : "=r"(done)
-          : "r"(b)
+          : "r"(b), "r"(phase)
           : "memory");
+    // each pose's cell once (a segment's ends are its neighbours')
     for (int i = threadIdx.x; i < count; i += kThreads)
       s_cell[i] = make_int2(cell_of(p0x, s_pose[i].x, q.res_rcp),
                             cell_of(p0y, s_pose[i].y, q.res_rcp));
     __syncthreads();
-    pose = s_pose + (size_t)(p - first) * q.N;
-    cell = s_cell + (size_t)(p - first) * q.N;
-  } else {
-    pose = reinterpret_cast<const float2*>(q.poses) + (size_t)p * q.N;
+    // the segments starting in this stage
+    const int lo = max(0, c0 - base), hi = min(last, c0 + kStagePoses - base);
+    for (int j = lo + ((lane - lo) & 31); j < hi; j += 32) {
+      const int i = base + j - c0;
+      walk_segment(q, s_pose[i], s_pose[i + 1], s_cell[i], s_cell[i + 1], all_ok, sum_len,
+                   sum_wt, sum_t, cnt);
+    }
+    if (c0 + kStagePoses + 1 >= total) break;
+    __syncthreads();  // every warp is done with the stage before the next
   }
-  if (p >= q.P) return;  // a whole warp leaves
-  const int n = q.n_poses[p];
+  if (!live) return;  // a whole warp leaves
 
   if (q.N == 1 || n == 1) {
     // check_circles at the first pose: always for a one-pose batch, for a
@@ -256,11 +319,9 @@ __global__ void __launch_bounds__(kThreads) circ_paths_kernel(const CircParams q
     bool ok1 = false;
     float trav1 = 0.0f;
     if (q.N == 1 || q.single) {
-      const float2 xy = pose[0];
-      const int2 c = kStaged ? cell[0]
-                             : make_int2(cell_of(p0x, xy.x, q.res_rcp),
-                                         cell_of(p0y, xy.y, q.res_rcp));
-      single_pose(q, p0x, p0y, xy.x, xy.y, c.x, c.y, &ok1, &trav1);
+      const float2 xy = src[base];
+      single_pose(q, p0x, p0y, xy.x, xy.y, cell_of(p0x, xy.x, q.res_rcp),
+                  cell_of(p0y, xy.y, q.res_rcp), &ok1, &trav1);
     }
     if (lane == 0) {
       const bool safe = ok1 && n >= 1;
@@ -269,56 +330,6 @@ __global__ void __launch_bounds__(kThreads) circ_paths_kernel(const CircParams q
       q.trav[p] = (q.N == 1 ? ok1 : safe) ? trav1 : 0.0f;
     }
     return;
-  }
-
-  // per lane, over its valid segments in order: all samples ok, the
-  // length-weighted and the plain sums of the segment means, the lengths,
-  // the count
-  bool all_ok = true;
-  float sum_len = 0.0f, sum_wt = 0.0f, sum_t = 0.0f, cnt = 0.0f;
-  for (int j = lane; j < q.N - 1 && j + 1 < n; j += 32) {
-    const float2 s = pose[j], e = pose[j + 1];
-    // the walk from the END cell to the START cell
-    int fi, fj, li, lj;
-    if constexpr (kStaged) {
-      fi = cell[j + 1].x, fj = cell[j + 1].y, li = cell[j].x, lj = cell[j].y;
-    } else {
-      fi = cell_of(p0x, e.x, q.res_rcp), fj = cell_of(p0y, e.y, q.res_rcp);
-      li = cell_of(p0x, s.x, q.res_rcp), lj = cell_of(p0y, s.y, q.res_rcp);
-    }
-    const int di = abs(li - fi), dj = abs(lj - fj);
-    const int si = li >= fi ? 1 : -1, sj = lj >= fj ? 1 : -1;
-    const bool x_dom = di >= dj;
-    const int denom = x_dom ? di : dj, num_add = x_dom ? dj : di;
-    const int half = denom / 2, safe_denom = max(denom, 1);
-    bool seg_ok = true;
-    int n_s = 0;
-    float acc = 0.0f;
-    // samples k = 0, 4, 8, ... of the denom + 1 cells (at most S of them)
-    for (int t = 0; t < q.S && 4 * t <= denom; ++t) {
-      const int k = 4 * t;
-      const int over = k == 0 ? 0 : (half + k * num_add) / safe_denom;
-      const int ci = fi + si * (x_dom ? k : over);
-      const int cj = fj + sj * (x_dom ? over : k);
-      float v = q.fill;
-      if (ci >= 0 && ci < q.H && cj >= 0 && cj < q.W) {
-        const size_t g = (size_t)ci * q.W + cj;
-        const float tv = q.field_trav[g];
-        v = q.field_ok[g] ? tv : __fsub_rn(-1.0f, tv);
-      }
-      const bool ok_s = v >= 0.0f;
-      seg_ok = seg_ok && ok_s;
-      acc = __fadd_rn(acc, ok_s ? v : __fsub_rn(-1.0f, v));
-      ++n_s;
-    }
-    const float seg_trav = __fdiv_rn(acc, (float)max(n_s, 1));
-    const float dx = __fsub_rn(e.x, s.x), dy = __fsub_rn(e.y, s.y);
-    const float len = __fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
-    all_ok = all_ok && seg_ok;
-    sum_len = __fadd_rn(sum_len, len);
-    sum_wt = __fadd_rn(sum_wt, __fmul_rn(len, seg_trav));
-    sum_t = __fadd_rn(sum_t, seg_trav);
-    cnt = __fadd_rn(cnt, 1.0f);
   }
 
   // the lanes combined in a fixed tree; lane 0 holds the sums
@@ -350,14 +361,11 @@ extern "C" {
 const char* te_circ_paths_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Resident blocks per SM of the kernel at `smem` bytes of dynamic shared
-// memory (staged when smem > 0), or -1.
+// memory, or -1.
 int te_circ_paths_occupancy(int smem) {
   int blocks = -1;
   const cudaError_t e =
-      smem > 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, circ_paths_kernel<true>,
-                                                               kThreads, smem)
-               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, circ_paths_kernel<false>,
-                                                               kThreads, 0);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, circ_paths_kernel, kThreads, smem);
   return e == cudaSuccess ? blocks : -1;
 }
 
@@ -372,7 +380,7 @@ int te_circ_paths_occupancy(int smem) {
 // rmin_zero: check_circles' constants (float32(default),
 // float32(rmax^2), float32(rmin), rcp(rmax - rmin), rmin == 0). grid_x,
 // block_x, smem: the launch plan, launched as given once it is checked
-// against this file's warps per block and staging (cudaErrorInvalidValue
+// against this file's warps per block and stage (cudaErrorInvalidValue
 // where it differs). Returns cudaGetLastError() after the launch.
 int te_circ_paths(const float* poses, const int* n_poses, const float* position,
                   const uint8_t* field_ok, const float* field_trav, const float* trav_plane,
@@ -381,11 +389,10 @@ int te_circ_paths(const float* poses, const int* n_poses, const float* position,
                   float fill, float default_trav, float r2max, float rmin, float span_rcp,
                   int rmin_zero, int grid_x, int block_x, int smem, uint8_t* safe, float* trav,
                   void* stream) {
-  const bool staged = N <= kStageMaxPoses;
   if (P < 1 || N < 1 || H < 1 || W < 1 || S < 0 || K < 1 || ld_trav < W || ld_mask < W ||
       block_x != kThreads || grid_x != (P + CIRC_WARPS - 1) / CIRC_WARPS ||
-      smem != (staged ? 64 * N : 0) || ((uintptr_t)poses & 15) != 0 || trav_plane == nullptr ||
-      mask_plane == nullptr || spiral == nullptr ||
+      smem != 16 * min(CIRC_WARPS * N, kStagePoses + 1) || ((uintptr_t)poses & 15) != 0 ||
+      trav_plane == nullptr || mask_plane == nullptr || spiral == nullptr ||
       (N > 1 && (field_ok == nullptr || field_trav == nullptr)))
     return (int)cudaErrorInvalidValue;
   CircParams q;
@@ -398,10 +405,7 @@ int te_circ_paths(const float* poses, const int* n_poses, const float* position,
   q.res = res, q.res_rcp = res_rcp, q.fill = fill, q.default_trav = default_trav;
   q.r2max = r2max, q.rmin = rmin, q.span_rcp = span_rcp;
   q.safe = safe, q.trav = trav;
-  if (staged)
-    circ_paths_kernel<true><<<grid_x, block_x, smem, (cudaStream_t)stream>>>(q);
-  else
-    circ_paths_kernel<false><<<grid_x, block_x, 0, (cudaStream_t)stream>>>(q);
+  circ_paths_kernel<<<grid_x, block_x, smem, (cudaStream_t)stream>>>(q);
   return (int)cudaGetLastError();
 }
 

@@ -176,9 +176,9 @@ def _replaced(plane: torch.Tensor, piece: torch.Tensor, start, fresh: bool) -> t
 def _online_tick(
     elevation, layers, extra_layers, patch, roll_shift, merge_start, crop_start,
     write_start, qcrop_start, qpos, poses, n_poses, quats=None, *,
-    chain_cfg, veto_cfg, crop_shape, inner, qcrop_shape, radius, offset, max_cells,
-    has_single, default_trav, do_roll, footprint=None, pwindow=None,
-    translate_only=False, conservative=False,
+    chain_cfg, veto_cfg, crop_shape, inner, qcrop_shape, radius, offset, has_single,
+    default_trav, do_roll, footprint=None, pwindow=None, translate_only=False,
+    conservative=False,
 ):
     """One online tick on tensors: [recenter roll +] submap merge +
     incremental refresh of the merged region + the tick's path batch on the
@@ -254,7 +254,7 @@ def _online_tick(
     else:
         field = dense_circle_field(state, radius + offset, radius)
         safe, trav = fp_ops.check_circular_paths(
-            state, poses, n_poses, radius, offset, max_cells, field, has_single
+            state, poses, n_poses, radius, offset, None, field, has_single
         )
     return elev2, new_layers, extra_layers, safe, trav, state, field
 
@@ -329,11 +329,10 @@ class TraversabilityEstimator:
         self.device = resolve_device(device)
         self._map: Optional[GridMap] = None
         self._epoch = _Epoch(None, np.zeros(2, dtype=np.float32), {})
-        # online_tick's monotone high-water marks: the polygonal window per
-        # (footprint, identity) and the circular sample count stop growing
-        # after a few ticks, so a tick's shapes repeat
+        # online_tick's monotone high-water mark: the polygonal window per
+        # (footprint, identity) stops growing after a few ticks, so a tick's
+        # shapes repeat
         self._pwindow_hwm: Dict[tuple, tuple] = {}
-        self._max_cells_hwm: int = 0
         self._elevation: Optional[torch.Tensor] = None
         self._extra_layers: Dict[str, torch.Tensor] = {}
         self._position = np.zeros(2, dtype=np.float32)
@@ -703,15 +702,10 @@ class TraversabilityEstimator:
 
         n_poses_np = np.asarray(n_poses, np.int32)
         if footprint is None:
-            max_cells = self._circular_cap(self._query_state.device, poses, n_poses_np)
-            if max_cells is not None:
-                # the plain version's walk: a monotone high-water sample
-                # count (the same reason as the window)
-                max_cells = max(max_cells, self._max_cells_hwm)
-                self._max_cells_hwm = max_cells
+            self._check_pose_bounds(poses, n_poses_np)
             has_single = bool(np.any(n_poses_np <= 1))
         else:
-            max_cells, has_single, radius, offset = 4, False, 0.0, 0.0
+            has_single, radius, offset = False, 0.0, 0.0
 
         elev2, new_layers, extra2, safe, trav, qstate, field = _online_tick(
             self._elevation,
@@ -734,7 +728,6 @@ class TraversabilityEstimator:
             qcrop_shape=(hc, wc),
             radius=float(radius),
             offset=float(offset),
-            max_cells=max_cells,
             has_single=has_single,
             default_trav=float(self._traversability_default),
             do_roll=recenter_to is not None,
@@ -868,11 +861,11 @@ class TraversabilityEstimator:
             poses[b, : len(pp)] = pp
             poses[b, len(pp) :] = pp[-1]
             n_poses[b] = len(pp)
-        max_cells = self._circular_cap(epoch.state.device, poses, n_poses)
+        self._check_pose_bounds(poses, n_poses)
         field = self._circle_field(float(radius), float(offset), epoch)
         safe, trav = fp_ops.check_circular_paths(
             epoch.state, poses, n_poses, float(radius), float(offset),
-            max_cells, field, bool(np.any(n_poses <= 1)),
+            None, field, bool(np.any(n_poses <= 1)),
         )
         safe = safe.cpu().numpy()
         trav = trav.cpu().numpy()
@@ -999,7 +992,7 @@ class TraversabilityEstimator:
         offset = self.config.footprint.circular_footprint_offset
         poses = np.asarray(poses, np.float32)
         n_poses = np.asarray(n_poses, np.int32)
-        max_cells = self._circular_cap(epoch.state.device, poses, n_poses)
+        self._check_pose_bounds(poses, n_poses)
         H, W = epoch.state.shape
         if crop is None:
             crop = H * W > 4_000_000
@@ -1009,7 +1002,7 @@ class TraversabilityEstimator:
             state = epoch.state
             field = self._circle_field(float(radius), float(offset), epoch)
         return fp_ops.check_circular_paths(
-            state, poses, n_poses, float(radius), float(offset), max_cells,
+            state, poses, n_poses, float(radius), float(offset), None,
             field, bool(np.any(n_poses <= 1)),
         )
 
@@ -1049,19 +1042,15 @@ class TraversabilityEstimator:
             epoch.fields[key] = dense_circle_field(epoch.state, radius + offset, radius)
         return epoch.fields[key]
 
-    def _circular_cap(self, device: torch.device, poses: np.ndarray, n_poses) -> Optional[int]:
-        """``max_segment_cells`` of a circular batch on `device`. The CPU's
-        plain version walks a static length, ``_max_segment_cells``. Kernel 4
-        walks each segment whole (None), so the card needs no pass over the
-        poses but a bounds check: a batch with a pose beyond 1e18 (NaN and
-        inf among them) takes ``_max_segment_cells`` as the CPU does, which
-        raises what it raises there (a NaN length's ValueError, an infinite
-        one's OverflowError); within it no length overflows."""
-        if device.type == "cpu":
-            return self._max_segment_cells(poses, n_poses)
+    def _check_pose_bounds(self, poses: np.ndarray, n_poses) -> None:
+        """The check a circular batch passes before it is walked: every
+        segment is walked whole (``max_segment_cells=None``), so no pass
+        over the poses' lengths is needed, but a batch with a pose beyond
+        1e18 (NaN and inf among them) takes ``_max_segment_cells``, which
+        raises what a capped walk raised (a NaN length's ValueError, an
+        infinite one's OverflowError); within it no length overflows."""
         if poses.size and not (-1e18 <= poses.min() and poses.max() <= 1e18):
             self._max_segment_cells(poses, n_poses)
-        return None
 
     def _max_segment_cells(self, poses, n_poses) -> int:
         res = self.config.chain.resolution

@@ -12,16 +12,16 @@ another order (float32 rounding).
 
 Kernel 4 is not the port of a TPU kernel: the JAX package computes the
 batch as XLA-fused ``jnp`` (``traversability_estimation_tpu/ops/
-footprint.py:378``). A call does no torch work but its outputs' allocation:
-the poses and pose counts the caller holds on the host go up in one
-``non_blocking`` copy from a pinned staging buffer (``device_inputs``); a
-segment takes its own samples, so the caller needs no sample cap
-(``max_segment_cells=None``); a path of one pose is ``check_circles``'
-spiral inside the kernel, from a table cached on the device
-(``device_spiral_table``). The circle field, when the caller gives none, is
-kernel 2's. The launch geometry (``launch_plan``, a warp per path) and the
-integer sample formula the kernel uses (``sample_cells``) are here, on the
-host, so the CPU tests reach them.
+footprint.py:378``). A call does no torch work but its inputs' uploads and
+its outputs' allocation: the poses and pose counts the caller holds on the
+host go up as they are (``device_inputs``); a segment takes its own
+samples, so the caller needs no sample cap (``max_segment_cells=None``); a
+path of one pose is ``check_circles``' spiral inside the kernel, from a
+table cached on the device (``device_spiral_table``). The circle field,
+when the caller gives none, is kernel 2's. The launch geometry
+(``launch_plan``, a warp per path, a stage of a block's poses in shared
+memory) and the integer sample formula the kernel uses (``sample_cells``)
+are here, on the host, so the CPU tests reach them.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import dataclasses
 import functools
 import math
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,17 +44,16 @@ from traversability_estimation_tpu_torch.ops.footprint import QueryState
 
 WARPS = 4  # paths a block takes, a warp each (csrc/circ_paths.cu checks the plan)
 THREADS = 32 * WARPS
-# the most poses a path may have for a block's poses and their cells (16
-# bytes a pose, 4 paths: 32 KB) to be staged in shared memory
-STAGE_MAX_POSES = 512
+# segment starts a stage of a block's poses holds in shared memory (with the
+# pose after the last and every pose's cell, 16 bytes a pose: 32 KB)
+STAGE_POSES = WARPS * 512
 UNCAPPED = 2**31 - 1  # the sample cap S that never binds
 
 
 @dataclasses.dataclass(frozen=True)
 class CircPlan:
     """One launch of kernel 4: the grid (a warp per path), the block and the
-    dynamic shared memory (a block's poses and their cells, 0 when they are
-    read from global memory)."""
+    dynamic shared memory (a stage of a block's poses and their cells)."""
 
     grid: int
     block: int
@@ -67,7 +66,7 @@ def launch_plan(P: int, N: int) -> CircPlan:
         raise ValueError(f"check_circular_paths: {P} paths of {N} poses; the kernel takes "
                          "at least 1 of each")
     return CircPlan(grid=-(-P // WARPS), block=THREADS,
-                    smem=WARPS * N * 16 if N <= STAGE_MAX_POSES else 0)
+                    smem=16 * min(WARPS * N, STAGE_POSES + 1))
 
 
 def samples_per_segment(max_segment_cells: Optional[int]) -> int:
@@ -129,76 +128,27 @@ def device_spiral_table(radius_max: float, resolution: float,
     return torch.as_tensor(np.array(spiral_table(radius_max, resolution)), device=device)
 
 
-class _Staging:
-    """Pinned host buffers of one device for a batch's poses and pose counts,
-    in two slots taken in turn, each grown as needed and guarded by the
-    event of its last copy: a slot is written again only once that copy has
-    left it. A fresh pin per call would cost more than the pageable copies
-    it replaces."""
-
-    def __init__(self) -> None:
-        self.lock = threading.Lock()
-        self.host: List[Optional[torch.Tensor]] = [None, None]
-        self.views: List[Optional[np.ndarray]] = [None, None]  # the slots as numpy bytes
-        self.events: List[Optional[torch.cuda.Event]] = [None, None]
-        self.turn = 0
-
-    def upload(self, poses: np.ndarray, n_poses: np.ndarray,
-               dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """`poses` (P, N, 2) and `n_poses` (P,), converted to float32 and
-        int32 as they are written into a slot, the poses first; the slot
-        goes up in one ``non_blocking`` copy on the current stream. Returns
-        both as views of the one device buffer."""
-        P, N = poses.shape[:2]
-        pb = P * N * 8
-        total = pb + P * 4
-        with self.lock:
-            i, self.turn = self.turn, self.turn ^ 1
-            host = self.host[i]
-            if host is None or host.numel() < total:
-                size = max(total, 2 * (0 if host is None else host.numel()), 1 << 16)
-                host = self.host[i] = torch.empty(size, dtype=torch.uint8, pin_memory=True)
-                self.views[i] = host.numpy()
-                self.events[i] = torch.cuda.Event()
-            else:
-                self.events[i].synchronize()
-            buf = self.views[i]
-            np.copyto(buf[:pb].view(np.float32).reshape(P, N, 2), poses, casting="unsafe")
-            np.copyto(buf[pb:total].view(np.int32), n_poses, casting="unsafe")
-            dev_buf = torch.empty(total, dtype=torch.uint8, device=dev)
-            dev_buf.copy_(host[:total], non_blocking=True)
-            self.events[i].record(torch.cuda.current_stream(dev))
-        return dev_buf[:pb].view(torch.float32).view(P, N, 2), dev_buf[pb:].view(torch.int32)
-
-
-_staging: Dict[str, _Staging] = {}
-_staging_lock = threading.Lock()
-
-
 def device_inputs(poses, n_poses, dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(poses (P, N, 2) float32, 16-byte aligned; n_poses (P,) int32) on
-    `dev`. Poses already on the card are used as they are (copied only to
-    align or convert), with their counts; poses from the host go up with
-    their counts in one copy from the device's staging buffer, counted in
-    ``device_inputs.copies``."""
-    if isinstance(poses, torch.Tensor) and poses.is_cuda:
-        p = poses.to(device=dev, dtype=torch.float32).contiguous()
-        n = torch.as_tensor(n_poses, dtype=torch.int32, device=dev).contiguous()
-    else:
-        p = poses.numpy() if isinstance(poses, torch.Tensor) else np.asarray(poses)
-        n = n_poses.cpu().numpy() if isinstance(n_poses, torch.Tensor) else np.asarray(n_poses)
+    `dev`, each by its own ``torch.as_tensor``: a tensor on the card is used
+    as it is (copied only to align or convert), a host array goes up in a
+    pageable copy, counted in ``device_inputs.copies`` for the poses. A
+    pinned staging buffer taking both in one copy lost to these two copies
+    on the card (``PERF.md``)."""
+    host = not (isinstance(poses, torch.Tensor) and poses.is_cuda)
+    p = torch.as_tensor(poses, dtype=torch.float32, device=dev).contiguous()
+    n = torch.as_tensor(n_poses, dtype=torch.int32, device=dev).contiguous()
     if p.ndim != 3 or p.shape[1] < 1 or p.shape[2] != 2:
         raise ValueError(f"check_circular_paths: poses {tuple(p.shape)}, expected (P, N, 2)")
     if tuple(n.shape) != tuple(p.shape[:1]):
         raise ValueError(f"check_circular_paths: n_poses {tuple(n.shape)} for {p.shape[0]} paths")
-    if isinstance(p, torch.Tensor):
-        return (p.clone() if p.data_ptr() % 16 else p), n
-    with _staging_lock:
-        st = _staging.setdefault(str(dev), _Staging())
-        device_inputs.copies += 1
-    return st.upload(p, n, dev)
+    if host:
+        with _copies_lock:
+            device_inputs.copies += 1
+    return (p.clone() if p.data_ptr() % 16 else p), n
 
 
+_copies_lock = threading.Lock()
 device_inputs.copies = 0
 
 

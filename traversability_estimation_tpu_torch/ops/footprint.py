@@ -449,17 +449,14 @@ def aggregate_sampled_segments(
     """Segment -> path aggregation: per-segment all-samples-ok and sample
     mean, then the length-weighted path mean (with a correct running length
     where the reference reads an uninitialised one). A segment's samples
-    are summed in walk order, one add each, as kernel 4 sums them: the sum
-    does not depend on the walk's static length (a reduction's tree
-    would)."""
+    are summed in walk order, as the last of their running sums (one
+    ``cumsum``, sequential on the CPU): the inactive samples after a
+    segment's last add zeros, so the sum does not depend on the walk's
+    static length (a reduction's tree would)."""
     s_active = s_valid & seg_valid[..., None]
     seg_ok = (ok_s | ~s_active).all(dim=-1)
     n_s = torch.clamp_min(s_active.sum(dim=-1), 1)
-    vals = torch.where(s_active, trav_s, 0.0)
-    seg_sum = vals[..., 0]
-    for t in range(1, vals.shape[-1]):
-        seg_sum = seg_sum + vals[..., t]
-    seg_trav = seg_sum / n_s
+    seg_trav = torch.where(s_active, trav_s, 0.0).cumsum(dim=-1)[..., -1] / n_s
 
     d = ends - starts
     seg_len = sqrt_f32(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])

@@ -13,6 +13,8 @@ than the parent's own spread between its quartiles.
 Usage, from the change's repository root:
     python -m traversability_estimation_tpu_torch.scripts.ab_pairs --parent DIR
         --out-dir D [--pairs 10] [--cell NAME ...] [--seeds 0 1] [--json F]
+``--read`` (no ``--parent``) runs nothing and summarises the whole pairs
+already in ``--out-dir``, such as those of a call cut by its time limit.
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ ROOT = Path(__file__).resolve().parents[2]
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", required=True, help="the parent's tree (a git archive)")
+    ap.add_argument("--parent", help="the parent's tree (a git archive)")
+    ap.add_argument("--read", action="store_true",
+                    help="summarise the whole pairs already in --out-dir; run nothing")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--cell", action="append", help="a cell (repeatable); all by default")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
@@ -75,18 +79,26 @@ def run(tree: Path, cell: str, seed: int, out: Path) -> dict:
     if proc.returncode != 0:
         raise SystemExit(f"{tree}: bench_torch --cell {cell} --seed {seed} exited "
                          f"{proc.returncode}; see {out.with_suffix('.log')}")
+    entry = load(cell, out)
+    entry["process_s"] = time.perf_counter() - t0
+    return entry
+
+
+def load(cell: str, out: Path) -> dict:
+    """The workload entry of `cell` in a run's JSON line, with its card."""
     line = json.loads(out.with_suffix(".json").read_text())
     entry = line["workloads"][cell]
     entry["card"] = line["card"]
-    entry["process_s"] = time.perf_counter() - t0
     return entry
 
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
+    if not (args.read or args.parent):
+        raise SystemExit("ab_pairs: --parent DIR, or --read")
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     specs = {w["name"]: w for w in bench["workloads"]}
-    trees = {"parent": Path(args.parent).resolve(), "change": ROOT}
+    trees = {"parent": Path(args.parent or ".").resolve(), "change": ROOT}
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     runs: Dict[str, Dict[str, list]] = {}
@@ -95,14 +107,20 @@ def main(argv=None) -> int:
         for i in range(args.pairs):
             seed = args.seeds[i % len(args.seeds)]
             order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+            outs = {side: out_dir / f"{cell}_{i:02d}_{side}" for side in order}
+            if args.read and not all(o.with_suffix(".json").exists() for o in outs.values()):
+                break
             for side in order:
-                entry = run(trees[side], cell, seed, out_dir / f"{cell}_{i:02d}_{side}")
+                entry = load(cell, outs[side]) if args.read else run(
+                    trees[side], cell, seed, outs[side])
                 runs[cell][side].append(entry)
                 print(f"pair {i} seed {seed} {cell} {side}: "
                       f"{json.dumps(entry['metrics'])} [{entry['card']}]", flush=True)
 
     summary = {"pairs": args.pairs, "seeds": args.seeds, "cells": {}}
     for cell, sides in runs.items():
+        if not sides["parent"]:
+            continue
         metrics = specs[cell]["metrics"]
         cards = sorted({e["card"] for e in sides["parent"] + sides["change"]})
         rows = {}

@@ -204,15 +204,15 @@ def main(argv=None, record=None) -> dict:
             record.append((tick_no, safe))
 
     # warm-up: the full loop body, unmeasured, until the estimator's
-    # high-water marks (the polygonal window, the circular sample count) stop
-    # moving, so the measured ticks repeat their shapes
+    # high-water mark (the polygonal window) stops moving, so the measured
+    # ticks repeat their shapes
     t0 = time.perf_counter()
     warm = max(args.warmup_ticks, 1)
     for w in range(warm):
         run_tick(w, measure=False)
     prev_marks, stable = None, 0
     for w in range(warm, warm + 12):
-        marks = (dict(est._pwindow_hwm), est._max_cells_hwm)
+        marks = dict(est._pwindow_hwm)
         stable = stable + 1 if marks == prev_marks else 0
         if stable >= 2:
             break
